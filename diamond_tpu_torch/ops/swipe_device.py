@@ -1,0 +1,415 @@
+"""Cross-query batched score-only banded SWIPE on the card.
+
+``DeviceDP.run_many`` takes the score-only DP jobs of a whole extension round
+(many queries, each with its own jobs) and scores them with one kernel launch
+per band class.  The kernel, ``banded_swipe_multi`` (CUDA C++ in
+``csrc/banded_swipe.cu``), replaces the TPU kernel
+``diamond_tpu/ops/swipe_device.py:banded_swipe_pallas_multi``; its plain
+PyTorch version ``banded_swipe_multi_plain`` computes the same function with
+tensor ops and is what the wrapper runs for tensors on the CPU.
+
+The batch is flat and ragged: concatenated int8 target letters with per-job
+offset and length, per-job diagonal start ``d0``, band and request index,
+concatenated int8 query letters and bias with per-request offsets.  Scores
+are exact int32, so the output never depends on which jobs were routed here.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import time
+
+import numpy as np
+import torch
+
+from diamond_tpu_torch.utils.device import resolve_device
+from diamond_tpu_torch.utils.log import pcount
+
+NEG = -(2 ** 20)
+MAX_DEVICE_BAND = 512        # 16 rows per lane of one warp
+ROWS_PER_LANE = (1, 2, 4, 8, 16)
+JOB_COLS = 5                 # jobs[k] = (t_off, t_len, d0, band, req)
+MAX_BATCH_LETTERS = 1 << 30  # per launch batch: offsets are int32
+
+# Dispatch telemetry (always on; a few int adds per launch).
+dispatch_count = 0      # kernel launches made by DeviceDP (either device)
+dispatch_cells = 0      # cells those launches walk: t_len x padded band
+dispatch_wait_s = 0.0   # wall time inside run_many (pack+send+compute+read)
+
+
+def reset_dispatch_stats():
+    global dispatch_count, dispatch_cells, dispatch_wait_s
+    dispatch_count = 0
+    dispatch_cells = 0
+    dispatch_wait_s = 0.0
+
+
+def pad_pow2(x: int, lo: int = 16) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return n
+
+
+def pad_band(x: int) -> int:
+    """Band padding: pow2 up to 1024, then multiples of 1024."""
+    if x <= 1024:
+        return pad_pow2(x, 16)
+    return (x + 1023) // 1024 * 1024
+
+
+def rows_per_lane(band: int) -> int:
+    """Band rows each of the warp's 32 lanes holds (the kernel's band class)."""
+    return pad_pow2(max(band, 1), 32) // 32
+
+
+def _min_device_cells() -> int:
+    """Per-job routing threshold: DIAMOND_TPU_TORCH_DP_MIN_CELLS, default 0
+    (every job within the kernel's band cap goes to DeviceDP)."""
+    v = os.environ.get("DIAMOND_TPU_TORCH_DP_MIN_CELLS")
+    return int(v) if v else 0
+
+
+def job_fits_device(tgt_len: int, d0: int, d1: int) -> bool:
+    band = d1 - d0
+    return (pad_band(band) <= MAX_DEVICE_BAND
+            and tgt_len * band >= _min_device_cells())
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
+    dev = t_cat.device
+    for name, x, dt in (("t_cat", t_cat, torch.int8), ("q_cat", q_cat, torch.int8),
+                        ("bias_cat", bias_cat, torch.int8),
+                        ("jobs", jobs, torch.int32), ("reqs", reqs, torch.int32),
+                        ("matrix32", matrix32, torch.int32)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, t_cat on {dev}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if t_cat.dim() != 1 or q_cat.dim() != 1 or bias_cat.shape != q_cat.shape:
+        raise ValueError("t_cat, q_cat and bias_cat must be 1-D, "
+                         "bias_cat shaped like q_cat")
+    if jobs.dim() != 2 or jobs.shape[1] != JOB_COLS:
+        raise ValueError(f"jobs must be [n, {JOB_COLS}], got {tuple(jobs.shape)}")
+    if reqs.dim() != 2 or reqs.shape[1] != 2:
+        raise ValueError(f"reqs must be [m, 2], got {tuple(reqs.shape)}")
+    if tuple(matrix32.shape) != (32, 32):
+        raise ValueError(f"matrix32 must be [32, 32], got {tuple(matrix32.shape)}")
+    if R not in ROWS_PER_LANE:
+        raise ValueError(f"rows_per_lane must be one of {ROWS_PER_LANE}")
+
+
+_k1_fn = None
+
+
+def _k1():
+    global _k1_fn
+    if _k1_fn is None:
+        from diamond_tpu_torch.ops import _cuda
+
+        fn = _cuda.library("banded_swipe").banded_swipe_multi_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _k1_fn = fn
+    return _k1_fn
+
+
+def banded_swipe_multi(t_cat, q_cat, bias_cat, jobs, reqs, matrix32,
+                       go: int, ge: int, rows_per_lane: int):
+    """Score-only banded SW for every job of a ragged batch.
+
+    t_cat int8 [Lt], q_cat/bias_cat int8 [Lq], jobs int32 [n, 5] rows
+    (t_off, t_len, d0, band, req), reqs int32 [m, 2] rows (q_off, q_len),
+    matrix32 int32 [32, 32]; go = gap open + extend, ge = gap extend; every
+    job's band <= 32 * rows_per_lane.  Band row r of column j is query
+    position i = j + d0 + r.  Returns int32 [n] tensors (best, max_col,
+    max_row): max_col the first target column where the best rises, max_row
+    the highest band row among that column's ties (0, 0, 0 for score 0).
+
+    CUDA tensors launch the kernel (counted in ``banded_swipe_multi.launches``);
+    CPU tensors run ``banded_swipe_multi_plain``.
+    """
+    _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, rows_per_lane)
+    dev = t_cat.device
+    if dev.type == "cpu":
+        return banded_swipe_multi_plain(t_cat, q_cat, bias_cat, jobs, reqs,
+                                        matrix32, go, ge, rows_per_lane)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_swipe_multi runs on cuda or cpu, not {dev}")
+    n = jobs.shape[0]
+    out = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)]
+    if n == 0:
+        return tuple(out)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _k1()(rows_per_lane, t_cat.data_ptr(), q_cat.data_ptr(),
+                    bias_cat.data_ptr(), jobs.data_ptr(), reqs.data_ptr(),
+                    matrix32.data_ptr(), n, int(go), int(ge),
+                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_swipe_multi launch failed: CUDA error {err}")
+    banded_swipe_multi.launches += 1
+    return tuple(out)
+
+
+banded_swipe_multi.launches = 0
+
+
+def banded_swipe_multi_plain(t_cat, q_cat, bias_cat, jobs, reqs, matrix32,
+                             go: int, ge: int, rows_per_lane: int):
+    """The kernel's function in tensor ops over [n_jobs, 32 * rows_per_lane],
+    one target column per step; exact int32, on whatever device the inputs
+    are on."""
+    dev = t_cat.device
+    i32 = torch.int32
+    n = jobs.shape[0]
+    band_pad = 32 * rows_per_lane
+    best = torch.zeros(n, dtype=i32, device=dev)
+    max_col = torch.zeros(n, dtype=i32, device=dev)
+    max_row = torch.zeros(n, dtype=i32, device=dev)
+    if n == 0:
+        return best, max_col, max_row
+    t_off, t_len, d0, band, req = jobs.long().unbind(1)
+    q_off = reqs[req, 0].long()
+    q_len = reqs[req, 1].long()
+    r = torch.arange(band_pad, device=dev)
+    r_ge = (r * ge).to(i32)
+    in_band = r[None, :] < band[:, None]
+    M = matrix32.long()
+    H = torch.zeros(n, band_pad, dtype=i32, device=dev)
+    E = torch.zeros(n, band_pad, dtype=i32, device=dev)
+    zcol = torch.zeros(n, 1, dtype=i32, device=dev)
+    r32 = r.to(i32)
+    q_last = max(q_cat.numel() - 1, 0)
+    t_last = max(t_cat.numel() - 1, 0)
+    for j in range(int(t_len.max())):
+        active = j < t_len
+        tl = t_cat[(t_off + j).clamp(max=t_last)].long() & 31
+        i = j + d0[:, None] + r[None, :]
+        valid = in_band & (i >= 0) & (i < q_len[:, None]) & active[:, None]
+        idx = (q_off[:, None] + i).clamp(0, q_last)
+        ql = q_cat[idx].long() & 31
+        s = (M[ql, tl[:, None]] + bias_cat[idx].long()).to(i32)
+        s = torch.where(valid, s, NEG)
+        cur0 = torch.maximum(H + s, E).clamp_min(0)
+        gmax = torch.cummax(cur0 - go + r_ge, dim=1).values
+        F = (gmax - r_ge).clamp_min(0)
+        Fs = torch.cat([zcol, F[:, :-1]], dim=1)
+        Hn = torch.where(valid, torch.maximum(cur0, Fs), 0)
+        cb = Hn.max(dim=1).values
+        upd = cb > best
+        crow = torch.where(Hn == cb[:, None], r32, -1).max(dim=1).values
+        best = torch.where(upd, cb, best)
+        max_col = torch.where(upd, j, max_col)
+        max_row = torch.where(upd, crow, max_row)
+        Eo = torch.maximum(E - ge, Hn - go).clamp_min(0)
+        E = torch.cat([Eo[:, 1:], zcol], dim=1)
+        H = Hn
+    return best, max_col, max_row
+
+
+# ---------------------------------------------------------------------------
+# Packing and the batcher
+# ---------------------------------------------------------------------------
+
+class PackedBatch:
+    """One run_many batch on the device: the kernel's flat inputs with jobs
+    sorted by band class, then by cells, longest first.  ``classes`` lists
+    (rows_per_lane, lo, hi) slices of ``jobs``; ``order[k]`` is the
+    (request, job) of sorted job k and ``d0[k]`` its diagonal start.
+    ``band_cells`` counts band cells as the host DP's telemetry does
+    (align/wave._count_cells); ``walk_cells`` the cells the kernel walks."""
+
+    __slots__ = ("t_cat", "q_cat", "bias_cat", "jobs", "reqs", "classes",
+                 "order", "d0", "n_jobs", "band_cells", "walk_cells")
+
+
+def pack_requests(requests, device) -> PackedBatch | None:
+    """Flatten run_many's requests into the kernel's inputs on ``device``."""
+    n_req = len(requests)
+    q_lens = np.fromiter((len(q) for q, _, _ in requests), np.int64, n_req)
+    q_offs = np.zeros(n_req, np.int64)
+    np.cumsum(q_lens[:-1], out=q_offs[1:])
+    q_cat = np.empty(int(q_lens.sum()), np.int8)
+    bias_cat = np.zeros(len(q_cat), np.int8)
+    targets, rows, order = [], [], []
+    for r, (q, bias, jobs) in enumerate(requests):
+        a, b = q_offs[r], q_offs[r] + q_lens[r]
+        q_cat[a:b] = np.asarray(q, dtype=np.int8) & 31
+        if bias is not None:
+            bias = np.asarray(bias)
+            if len(bias) and (bias.min() < -128 or bias.max() > 127):
+                raise ValueError("query bias outside int8")
+            bias_cat[a:b] = bias
+        for k, (t, d0, d1) in enumerate(jobs):
+            targets.append(t)
+            rows.append((len(t), d0, d1 - d0, r))
+            order.append((r, k))
+    n = len(rows)
+    if n == 0:
+        return None
+    info = np.array(rows, dtype=np.int64).reshape(n, 4)
+    t_len, d0, band = info[:, 0], info[:, 1], info[:, 2]
+    if (band < 1).any() or (band > MAX_DEVICE_BAND).any():
+        raise ValueError(f"DeviceDP takes bands 1..{MAX_DEVICE_BAND}")
+    if t_len.sum() >= 2 ** 31 or len(q_cat) >= 2 ** 31:
+        raise ValueError("DeviceDP batch exceeds int32 letter offsets")
+    t_off = np.zeros(n, np.int64)
+    np.cumsum(t_len[:-1], out=t_off[1:])
+    R = np.array([rows_per_lane(int(b)) for b in band], np.int64)
+    perm = np.lexsort((-(t_len * band), R))
+    jobs = np.stack([t_off, t_len, d0, band, info[:, 3]], axis=1)[perm]
+    t_cat = (np.concatenate([np.asarray(t, dtype=np.int8) for t in targets])
+             if t_len.sum() else np.zeros(0, np.int8)) & 31
+    p = PackedBatch()
+    Rs = R[perm]
+    bounds = np.flatnonzero(np.diff(Rs)) + 1
+    los = np.concatenate([[0], bounds])
+    his = np.concatenate([bounds, [n]])
+    p.classes = [(int(Rs[lo]), int(lo), int(hi)) for lo, hi in zip(los, his)]
+    p.order = [order[k] for k in perm]
+    p.d0 = jobs[:, 2].copy()
+    p.n_jobs = n
+    p.walk_cells = int((t_len * 32 * R).sum())
+    j0 = np.maximum(0, -d0 - band + 1)
+    j1 = np.minimum(t_len, q_lens[info[:, 3]] - d0)
+    p.band_cells = int((np.maximum(j1 - j0, 0) * band).sum())
+    dev = torch.device(device)
+    p.t_cat = torch.from_numpy(t_cat).to(dev)
+    p.q_cat = torch.from_numpy(q_cat).to(dev)
+    p.bias_cat = torch.from_numpy(bias_cat).to(dev)
+    p.jobs = torch.from_numpy(jobs.astype(np.int32)).to(dev)
+    p.reqs = torch.from_numpy(
+        np.stack([q_offs, q_lens], axis=1).astype(np.int32)).to(dev)
+    return p
+
+
+class DeviceDP:
+    """Cross-query score-only banded DP batcher.
+
+    run_many(requests) with requests = [(query, bias_or_None, jobs)], jobs =
+    [(target_letters, d_begin, d_end)], returns per-request lists of
+    (score, subject_pos, query_pos), the score-only output of
+    ops/banded_swipe.banded_swipe_batch_np.  Bands above MAX_DEVICE_BAND
+    are the caller's to route elsewhere (``job_fits_device``).
+    """
+
+    def __init__(self, matrix32, gap_open: int, gap_extend: int,
+                 device: str | None = None):
+        self.device = torch.device(resolve_device(device))
+        self._m32 = torch.tensor(np.asarray(matrix32), dtype=torch.int32,
+                                 device=self.device)
+        self.go = gap_open + gap_extend
+        self.ge = gap_extend
+
+    def run_many(self, requests):
+        global dispatch_wait_s
+        t0 = time.perf_counter()
+        try:
+            return self._run_many(requests)
+        finally:
+            dispatch_wait_s += time.perf_counter() - t0
+
+    def launch(self, p: PackedBatch, kernel=banded_swipe_multi):
+        """One launch of ``kernel`` per band class of a packed batch; returns
+        (best, max_col, max_row) int32 tensors in the batch's job order."""
+        global dispatch_count, dispatch_cells
+        outs = []
+        for R, lo, hi in p.classes:
+            outs.append(kernel(p.t_cat, p.q_cat, p.bias_cat, p.jobs[lo:hi],
+                               p.reqs, self._m32, self.go, self.ge, R))
+        dispatch_count += len(p.classes)
+        dispatch_cells += p.walk_cells
+        return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+    def _run_many(self, requests):
+        """Consecutive slices of at most MAX_BATCH_LETTERS letters each."""
+        out = []
+        lo = 0
+        while lo < len(requests):
+            hi, letters = lo, 0
+            while hi < len(requests):
+                q, _, jobs = requests[hi]
+                n = len(q) + sum(len(t) for t, _, _ in jobs)
+                if hi > lo and letters + n > MAX_BATCH_LETTERS:
+                    break
+                letters += n
+                hi += 1
+            out += self._run_batch(requests[lo:hi])
+            lo = hi
+        return out
+
+    def _run_batch(self, requests):
+        out = [[None] * len(jobs) for _, _, jobs in requests]
+        p = pack_requests(requests, self.device)
+        if p is None:
+            return out
+        pcount("ext.device_jobs", p.n_jobs)
+        pcount("ext.device_cells", p.band_cells)
+        res = torch.stack(self.launch(p)).cpu().numpy().astype(np.int64)
+        best, col, row = res
+        i_true = col + p.d0 + row
+        for k, (r, kk) in enumerate(p.order):
+            out[r][kk] = (int(best[k]), int(col[k]), int(i_true[k]))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Carrying the TPU kernel's packed inputs across
+# ---------------------------------------------------------------------------
+
+def from_pallas_batch(t_idx8, band_mask8, q_let8, q_bias8, q_valid8,
+                      T: int, band: int, tile_b: int, slots: int = 4):
+    """The TPU kernel's packed numpy inputs (diamond_tpu's
+    banded_swipe_pallas_multi: tile g, row b = slot b // (tile_b/slots))
+    as this kernel's flat inputs, one job per tile row, one request per
+    (tile, slot).  A job's target is its row of the first T - 8 columns
+    (the TPU kernel's walk; the last 8 are its prefetch margin), its
+    query the slot's valid profile rows [a, b) with d0 = -a, so the
+    outputs equal the TPU kernel's row for row.  Returns a dict of numpy
+    arrays (t_cat, q_cat, bias_cat, jobs, reqs) and rows_per_lane."""
+    t_idx8 = np.asarray(t_idx8)
+    G = t_idx8.shape[0] // T
+    T_pb = T + band
+    slot_rows = tile_b // slots
+    n_cols = T - 8
+    t = t_idx8.reshape(G, T, tile_b)[:, :n_cols, :].transpose(0, 2, 1)
+    t_cat = np.ascontiguousarray(t.reshape(-1)) & 31
+    bm = np.asarray(band_mask8).reshape(G * tile_b, band) != 0
+    bands = bm.sum(axis=1)
+    if not (bm == (np.arange(band)[None, :] < bands[:, None])).all():
+        raise ValueError("band_mask rows must be prefixes")
+    qv = np.asarray(q_valid8).reshape(G * slots, T_pb) != 0
+    ql = np.asarray(q_let8).reshape(G * slots, T_pb)
+    qb = np.asarray(q_bias8).reshape(G * slots, T_pb)
+    q_parts, b_parts, reqs, starts = [], [], [], []
+    off = 0
+    for s in range(G * slots):
+        idx = np.flatnonzero(qv[s])
+        a, b = (int(idx[0]), int(idx[-1]) + 1) if len(idx) else (0, 0)
+        if b - a != len(idx):
+            raise ValueError("q_valid rows must be contiguous")
+        q_parts.append(ql[s, a:b] & 31)
+        b_parts.append(qb[s, a:b])
+        reqs.append((off, b - a))
+        starts.append(a)
+        off += b - a
+    n = G * tile_b
+    rows = np.arange(n)
+    req = (rows // tile_b) * slots + (rows % tile_b) // slot_rows
+    jobs = np.stack([rows * n_cols, np.full(n, n_cols), -np.asarray(starts)[req],
+                     bands, req], axis=1).astype(np.int32)
+    return dict(
+        t_cat=t_cat.astype(np.int8),
+        q_cat=np.concatenate(q_parts).astype(np.int8),
+        bias_cat=np.concatenate(b_parts).astype(np.int8),
+        jobs=np.ascontiguousarray(jobs),
+        reqs=np.asarray(reqs, dtype=np.int32).reshape(-1, 2),
+    ), rows_per_lane(band)

@@ -1,0 +1,92 @@
+"""End to end: ``blastp`` of the port (diamond_tpu_torch) byte for byte against
+diamond_tpu's, in subprocesses.
+
+The port runs on the CPU with every fitting DP job routed through DeviceDP's
+plain version (DIAMOND_TPU_TORCH_DP_MIN_CELLS=0) and must make DeviceDP
+dispatches; diamond_tpu runs its host DP under JAX on the CPU.  Both CLIs see
+the same argv[0], so the SAM header's command line matches too.
+"""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")  # the reference CLI (absent on a card host)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(REPO, "tests", "goldens")
+
+# runs a package's cli.main with argv[0] = "diamond"; the port's run reports
+# DeviceDP's dispatch count on stderr
+_LAUNCH = """
+import sys
+from {pkg}.cli import main
+sys.argv = ["diamond"] + sys.argv[1:]
+rc = main(sys.argv[1:])
+if "{pkg}" == "diamond_tpu_torch":
+    from diamond_tpu_torch.ops import swipe_device as sd
+    print(f"DISPATCHES={{sd.dispatch_count}}", file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _run(pkg, args, tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if pkg == "diamond_tpu_torch":
+        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu",
+                   DIAMOND_TPU_TORCH_DP_MIN_CELLS="0")
+        env.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
+    else:
+        env.update(JAX_PLATFORMS="cpu", DIAMOND_TPU_DEVICE_DP="0")
+    r = subprocess.run([sys.executable, "-c", _LAUNCH.format(pkg=pkg), *args],
+                       capture_output=True, env=env, timeout=600,
+                       cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+    return r.stdout, r.stderr.decode()
+
+
+@pytest.fixture(scope="module")
+def synthetic(tmp_path_factory):
+    """~300 sequences from chip_smoke.py's generator (a query subset of 60
+    against all of them)."""
+    sys.path.insert(0, REPO)
+    try:
+        from chip_smoke import make_proteins, write_fasta
+    finally:
+        sys.path.remove(REPO)
+    d = tmp_path_factory.mktemp("syn")
+    recs = make_proteins(n_seqs=300, n_families=75, seed=5)
+    write_fasta(d / "db.faa", recs)
+    write_fasta(d / "q.faa", recs[:60])
+    return str(d / "q.faa"), str(d / "db.faa")
+
+
+@pytest.fixture(scope="module")
+def j2_db(tmp_path_factory):
+    """q2.faa and j2.faa in one database (j2.faa alone against q2.faa
+    finds nothing)."""
+    path = tmp_path_factory.mktemp("j2") / "q2j2.faa"
+    with open(path, "w") as f:
+        for name in ("q2.faa", "j2.faa"):
+            with open(os.path.join(GOLD, name)) as g:
+                f.write(g.read())
+    return str(path)
+
+
+CASES = [(inp, fmt) for inp in ("q2-self", "j2-q2", "synthetic")
+         for fmt in ("6", "0", "5", "101")]
+
+
+@pytest.mark.parametrize("inp,fmt", CASES)
+def test_blastp_port_matches_reference(inp, fmt, synthetic, j2_db, tmp_path):
+    q, d = {"q2-self": (f"{GOLD}/q2.faa", f"{GOLD}/q2.faa"),
+            "j2-q2": (f"{GOLD}/j2.faa", j2_db),
+            "synthetic": synthetic}[inp]
+    args = ["blastp", "-q", q, "-d", d, "-f", fmt]
+    port, log = _run("diamond_tpu_torch", args, tmp_path)
+    ref, _ = _run("diamond_tpu", args, tmp_path)
+    assert port.strip(), "empty output"
+    assert port == ref
+    dispatches = int(log.rsplit("DISPATCHES=", 1)[1].split()[0])
+    assert dispatches > 0
