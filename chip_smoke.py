@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (diamond_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--queries N] [--seed S]
+    python3 chip_smoke.py [--queries N] [--long-reads N] [--short-reads N]
+                          [--swipe-queries N] [--seed S]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
-  2. build: the port's CUDA kernels with nvcc for sm_90a (registers and
-     spills from ptxas) and the port's native host library;
-  3. parity: the banded-SWIPE kernel against its plain PyTorch version on
-     the card and the native host DP, on seeded requests covering every
-     band class (exact int32, 0 mismatches required);
-  4. main path: a default ``blastp -f 6`` self-search of a seeded synthetic
-     protein set the size of nr_10k (10,000 sequences, ~4 M letters)
-     through diamond_tpu_torch.cli, once with the DP on the card and once
-     with DIAMOND_TPU_TORCH_DEVICE_DP=0; the two outputs must be identical
-     and every query must find itself;
-  5. timing: the kernel, its plain version and the bound on the largest
-     DP batch of phase 4 (CUDA events).
+  2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
+     full_swipe.cu; one nvcc per source, all at once, for sm_90a; registers
+     and spills from ptxas) and the port's native host library;
+  3. parity: each kernel against its plain PyTorch version on the card and
+     the host DP (exact int32, 0 mismatches required): the banded SWIPE
+     (K1) on requests in every band class; the 3-frame DP (K3) on jobs over
+     both strands, frames of unequal length, d0 < 0, band 1, targets
+     shorter than the band; the full-matrix sweep (K2) against the
+     full-band host DP, with and without bias, queries above one strip;
+  4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
+     protein set the size of nr_10k (10,000 sequences, ~4 M letters);
+  5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
+     (~1 indel per kb) against it; >= 95 % must hit their source protein;
+  6. blastx: default six-frame search of seeded 300-1500 nt reads (its DP
+     is on the host, as in the reference; run once);
+  7. blastp --swipe: the first 32 proteins against the whole set;
+     paths 4, 5 and 7 run once with the DP on the card and once with
+     DIAMOND_TPU_TORCH_DEVICE_DP=0; the outputs must be identical and the
+     path's kernel must have launched (counts set to 0 before each run);
+  8. timing: each kernel, its plain version and the bound on the largest
+     batch of its path (CUDA events).
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -37,12 +47,19 @@ AA = "ARNDCQEGHILKMFPSTWYV"  # order of the BLOSUM62 background frequencies
 H100_SMS = 132
 INT32_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
-# int32 ops one cell of the recurrence needs (the row-serial form; the
-# kernel's lazy-F scan computes the same values with a few more)
-OPS_PER_CELL = 12
-CELL_OPS_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and F), "
-                 "F-ge, max for F, max F into H, valid select, best max, "
-                 "E-ge, max for E")
+# int32 ops one cell of each recurrence needs (the row-serial form; the
+# kernels' lazy-F scans compute the same values with a few more)
+K1_OPS = 12
+K1_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and F), F-ge, "
+           "max for F, max F into H, valid select, best max, E-ge, max for E")
+K2_OPS = 11
+K2_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and F), E-ge, "
+           "max for E, F-ge, max for F, max F into H, best max")
+K3_OPS = 15
+K3_NOTE = ("s-fs, diagonal+s, row r-1 + (s-fs), row r+1 + (s-fs), 5 max "
+           "over those three, the vertical gap, the horizontal state and 0, "
+           "H-go (shared), vertical gap-ge, max for it, horizontal state-ge, "
+           "max for it, best max")
 
 
 def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
@@ -86,10 +103,65 @@ def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
     return [seqs[i] for i in perm]
 
 
+STANDARD_CODE = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+BASES = "TCAG"  # the code's codon order: TCAG x TCAG x TCAG
+
+
+def make_reads(proteins, n_reads: int, min_len: int, max_len: int,
+               indels_per_kb: float = 0.0, subst: float = 0.01,
+               seed: int = 0):
+    """Seeded synthetic DNA reads from a protein set: each read back-
+    translates a random member (or a window of it, when the member is
+    longer than the read) with seeded codons of the standard code, adds
+    random flanks up to a length drawn from [min_len, max_len], applies
+    ~``subst`` substitutions and ``indels_per_kb`` single-nucleotide
+    insertions or deletions per kb, and every other read is reverse
+    complemented.  Returns [(name, dna)]; a read's name ends with the id of
+    its source protein."""
+    rng = np.random.default_rng(seed)
+    codons: dict[str, list[str]] = {}
+    for k, aa in enumerate(STANDARD_CODE):
+        codons.setdefault(aa, []).append(
+            BASES[k // 16] + BASES[k // 4 % 4] + BASES[k % 4])
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for r in range(n_reads):
+        pid, prot = proteins[int(rng.integers(len(proteins)))]
+        L = int(rng.integers(min_len, max_len + 1))
+        n_aa = min(len(prot), (L - 30) // 3)
+        a = int(rng.integers(len(prot) - n_aa + 1))
+        cds = "".join(codons[c][int(rng.integers(len(codons[c])))]
+                      for c in prot[a:a + n_aa])
+        left = int(rng.integers(L - len(cds) + 1))
+        dna = list("".join(BASES[x] for x in rng.integers(0, 4, left)) + cds
+                   + "".join(BASES[x] for x in
+                             rng.integers(0, 4, L - len(cds) - left)))
+        for p in np.flatnonzero(rng.random(len(dna)) < subst):
+            dna[p] = BASES[int(rng.integers(4))]
+        for _ in range(int(rng.poisson(indels_per_kb * len(dna) / 1000))):
+            p = int(rng.integers(len(dna)))
+            if rng.random() < 0.5:
+                dna.insert(p, BASES[int(rng.integers(4))])
+            else:
+                del dna[p]
+        dna = "".join(dna)
+        if r % 2:
+            dna = dna.translate(comp)[::-1]
+        reads.append((f"read{r:05d}_{pid}", dna))
+    return reads
+
+
 def write_fasta(path, recs):
     with open(path, "w") as f:
         for name, s in recs:
             f.write(f">{name}\n{s}\n")
+
+
+def write_fastq(path, recs):
+    with open(path, "w") as f:
+        for k, (name, s) in enumerate(recs):
+            qual = "".join(chr(33 + 20 + (k + i) % 20) for i in range(len(s)))
+            f.write(f"@{name}\n{s}\n+\n{qual}\n")
 
 
 def dp_requests(seed: int, n_queries: int):
@@ -128,6 +200,74 @@ def band_cells(t_len, q_len, d0, band):
     return cells
 
 
+def swipe3_jobs(seed: int, n_queries: int):
+    """Seeded 3-frame jobs: per query, both strands' frame translations of
+    unequal length (so the stop row bites) and jobs over both strands in
+    every band class up to 512, targets up to ~4000 letters with a planted
+    stretch of the band's diagonal, d0 < 0, band 1 and targets shorter than
+    the band.  Returns [(strands, [(strand, target, d0, d1)])]."""
+    rng = np.random.default_rng(seed)
+    bands = (1, 20, 32, 33, 64, 100, 128, 200, 256, 300, 512)
+    out = []
+    for _ in range(n_queries):
+        strands = []
+        for _s in range(2):
+            q0 = int(rng.integers(60, 1500))
+            lens = [q0, q0 - int(rng.integers(0, 2)), q0 - int(rng.integers(0, 2))]
+            strands.append([rng.integers(0, 20, n).astype(np.int8) for n in lens])
+        jobs = []
+        for k in range(int(rng.integers(10, 24))):
+            s = k % 2
+            q = strands[s][0]
+            tl = int(rng.integers(5, 4000))
+            t = rng.integers(0, 20, tl).astype(np.int8)
+            band = bands[k % len(bands)]
+            d0 = int(rng.integers(-tl + 1, len(q)))
+            d1 = max(min(d0 + band, len(q)), d0 + 1)
+            d = (d0 + d1) // 2
+            j = np.arange(max(0, -d), min(tl, len(q) - d))[:80]
+            t[j] = q[j + d]
+            jobs.append((s, t, d0, d1))
+        jobs += [(0, t[:7], -3, 60), (1, t[:40], 2, 3)]
+        out.append((strands, jobs))
+    return out
+
+
+def swipe3_cells(jobs, reqs):
+    """Exact cells of each 3-frame job (rows the recurrence computes, summed
+    over its columns), from the kernel's packed jobs and reqs."""
+    cells = np.zeros(len(jobs), np.int64)
+    for k, (_t_off, t_len, i0, band, req) in enumerate(jobs.astype(np.int64)):
+        _q, l0, l1, l2 = reqs[req].astype(np.int64)
+        stop = min(3 * l1 + 1, 3 * l2 + 2)
+        lo = np.maximum(i0 + np.arange(t_len), 0)
+        hi = np.minimum(i0 + np.arange(t_len) + band, l0)
+        cells[k] = np.maximum(np.minimum(3 * hi, stop) - 3 * lo, 0).sum()
+    return cells
+
+
+def sweep_inputs(seed: int):
+    """Seeded --swipe inputs: queries of 5 to 4,000 letters (several above
+    the 512-row strip, bias on every other one) and 150 targets of up to
+    ~3,000 letters, most with a planted stretch of a query."""
+    rng = np.random.default_rng(seed)
+    queries = []
+    for k, n in enumerate((5, 31, 33, 100, 300, 512, 513, 1000, 2100, 4000)):
+        q = rng.integers(0, 20, n).astype(np.int8)
+        queries.append((q, rng.integers(-4, 5, n).astype(np.int8) if k % 2
+                        else None))
+    targets = []
+    for k in range(150):
+        t = rng.integers(0, 20, int(rng.integers(1, 3000))).astype(np.int8)
+        q = queries[k % len(queries)][0]
+        n = min(len(t), len(q), 60)
+        a = int(rng.integers(len(t) - n + 1))
+        b = int(rng.integers(len(q) - n + 1))
+        t[a:a + n] = q[b:b + n]
+        targets.append(t)
+    return queries, targets
+
+
 def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -151,15 +291,50 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
+class Patched:
+    """Set attributes for the length of a with-block, then restore them."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.triples]
+        for o, n, v in self.triples:
+            setattr(o, n, v)
+
+    def __exit__(self, *exc):
+        for o, n, v in self.saved:
+            setattr(o, n, v)
+
+
+def source_hits(lines):
+    """Reads (query ids ending with their source protein's id) that hit
+    their source protein."""
+    out = set()
+    for ln in lines:
+        q, s = ln.split("\t")[:2]
+        if q.split("_", 1)[1] == s:
+            out.add(q)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=10_000,
-                    help="queries of the self-search (the DB stays 10,000)")
+                    help="queries of the blastp self-search (the DB stays "
+                         "whole)")
+    ap.add_argument("--long-reads", type=int, default=300,
+                    help="reads of the blastx --long-reads run")
+    ap.add_argument("--short-reads", type=int, default=2000,
+                    help="reads of the default blastx run")
+    ap.add_argument("--swipe-queries", type=int, default=32,
+                    help="queries of the blastp --swipe run")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
 
+    t_start = time.perf_counter()
     # -- 1. device ----------------------------------------------------------
     phase("device")
     if not torch.cuda.is_available():
@@ -172,13 +347,22 @@ def main(argv=None):
     print(f"device: {kind} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}; max SM clock {sm_clock_mhz:.0f} MHz")
     print(name_power)
+    int32_ops_per_s = H100_SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+
+    def bound(cells, ops, n_bytes):
+        ops_s = cells * ops / int32_ops_per_s
+        bytes_s = n_bytes / HBM_BYTES_PER_S
+        return (max(ops_s, bytes_s) * 1e3,
+                "operations" if ops_s >= bytes_s else "bytes")
 
     # profiler counters (jobs and cells per DP route) must be on before
     # the port's log module is imported
     os.environ["DIAMOND_TPU_PROF"] = "1"
     from diamond_tpu_torch import native
     from diamond_tpu_torch.cli import main as cli_main
+    from diamond_tpu_torch.data.block import Block
     from diamond_tpu_torch.ops import _cuda
+    from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
@@ -186,13 +370,16 @@ def main(argv=None):
 
     # -- 2. build -----------------------------------------------------------
     phase("build")
+    kernels = ("banded_swipe", "swipe3", "full_swipe")
     t0 = time.perf_counter()
-    _cuda.build(["banded_swipe"])
-    print(f"nvcc banded_swipe.cu: {time.perf_counter() - t0:.2f} s")
-    for line in _cuda.build_log.get("banded_swipe", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas:", line.strip())
-    sd._k1()
+    _cuda.build(kernels)  # one nvcc per source, all at once
+    print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        for line in _cuda.build_log.get(k, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {k}:", line.strip())
+    sd._k1(), s3._k3(), sd._k2()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -201,142 +388,300 @@ def main(argv=None):
     # -- 3. parity ----------------------------------------------------------
     phase("kernel parity")
     m = ScoreMatrix("BLOSUM62")
+    go, ge, fs = m.gap_open + m.gap_extend, m.gap_extend, 15
+    m32 = torch.tensor(m.matrix32, dtype=torch.int32, device="cuda")
+    max_err = {}
+
+    def diff(name, got, want):
+        torch.cuda.synchronize()
+        mis = int(sum((g != w).sum().item() for g, w in zip(got, want)))
+        err = max(int((g.long() - w.long()).abs().max().item())
+                  for g, w in zip(got, want) if g.numel())
+        max_err[name] = max(max_err.get(name, 0), err)
+        return mis
+
+    # K1: the banded extension DP
     dp = sd.DeviceDP(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
     reqs = dp_requests(args.seed + 1, 48)
     p = sd.pack_requests(reqs, "cuda")
-    got = dp.launch(p)
-    want = dp.launch(p, kernel=sd.banded_swipe_multi_plain)
-    torch.cuda.synchronize()
-    raw_mis = int(sum((g != w).sum().item() for g, w in zip(got, want)))
-    max_abs_err = max(int((g.long() - w.long()).abs().max().item())
-                      for g, w in zip(got, want))
+    raw_mis = diff("k1", dp.launch(p),
+                   dp.launch(p, kernel=sd.banded_swipe_multi_plain))
     host_mis = 0
     for (q, bias, jobs), res in zip(reqs, dp.run_many(reqs)):
         ref = banded_swipe_batch_np(q, bias, jobs, m.matrix32, m.gap_open,
                                     m.gap_extend)
         host_mis += sum(a != b for a, b in zip(res, ref))
     classes = [R * 32 for R, _, _ in p.classes]
-    print(f"parity: {p.n_jobs} jobs, band classes {classes}, "
-          f"kernel vs plain mismatches {raw_mis}, kernel vs host DP "
-          f"mismatches {host_mis}")
+    print(f"K1 parity: {p.n_jobs} jobs, band classes {classes}, kernel vs "
+          f"plain mismatches {raw_mis}, kernel vs host DP mismatches {host_mis}")
     if raw_mis or host_mis:
-        raise RuntimeError("kernel disagrees with its references")
+        raise RuntimeError("K1 disagrees with its references")
 
-    # -- 4. main path -------------------------------------------------------
-    phase("main path: blastp self-search")
-    captured = {"n": -1, "reqs": None}
+    # K3: the 3-frame DP of blastx -F
+    k3_jobs = k3_mis = k3_host_mis = 0
+    k3_classes = set()
+    for strands, jobs in swipe3_jobs(args.seed + 2, 8):
+        kb, kc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda")
+        pb, pc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda",
+                                  kernel=s3.banded_swipe3_plain)
+        k3_mis += int((kb != pb).sum() + (kc != pc).sum())
+        max_err["k3"] = max(max_err.get("k3", 0), int(np.abs(kb - pb).max()),
+                            int(np.abs(kc - pc).max()))
+        for k, (s, t, d0, d1) in enumerate(jobs):
+            k3_classes.add(32 * s3.offsets_per_lane(d1 - d0))
+            fwd = native.banded_3frame_forward_native(
+                strands[s], t, d0, d1, m.matrix32, go, ge, fs)
+            want = (0, -1) if fwd is None else (fwd[1], fwd[2])
+            if want[0] <= 0:
+                want = (0, -1)
+            k3_host_mis += (int(kb[k]), int(kc[k])) != want
+        k3_jobs += len(jobs)
+    print(f"K3 parity: {k3_jobs} jobs over both strands, band classes "
+          f"{sorted(k3_classes)}, kernel vs plain mismatches {k3_mis}, kernel "
+          f"vs native host DP mismatches {k3_host_mis}")
+    if k3_mis or k3_host_mis:
+        raise RuntimeError("K3 disagrees with its references")
+
+    # K2: the full-matrix sweep of --swipe
+    queries, targets = sweep_inputs(args.seed + 3)
+    tb = Block.from_sequences(targets, [f"t{i}" for i in range(len(targets))])
+    t_order = np.arange(len(targets))
+    sweep = sd.FullSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    blk = sweep.pack(queries, tb, t_order)
+    x = {k: torch.from_numpy(getattr(blk, k)).cuda()
+         for k in ("t_cat", "targets", "q_cat", "bias_cat")}
+    k2_mis = 0
+    for L in blk.launches:
+        r_, p_ = (torch.from_numpy(a).cuda() for a in (L.reqs, L.pairs))
+        scratch = torch.empty((L.slots, 2, len(blk.t_cat), 2),
+                              dtype=torch.int32, device="cuda")
+        outs = []
+        for fn in (sd.full_swipe, sd.full_swipe_plain):
+            o = torch.zeros((blk.n_queries, blk.n_targets), dtype=torch.int32,
+                            device="cuda")
+            outs.append(fn(x["t_cat"], x["targets"], x["q_cat"],
+                           x["bias_cat"], r_, p_, m32, go, ge, L.R, scratch, o))
+        k2_mis += diff("k2", [outs[0]], [outs[1]])
+    S = sweep.run_block(queries, tb, t_order)
+    k2_host_mis = 0
+    for r, (q, bias) in enumerate(queries):
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        k2_host_mis += int((S[r] != np.array([x_[0] for x_ in ref])).sum())
+    print(f"K2 parity: {len(queries)} queries (lengths "
+          f"{[len(q) for q, _ in queries]}, up to "
+          f"{max(L_.slots for L_ in blk.launches)} multi-strip per launch) x "
+          f"{len(targets)} targets, rows-per-lane classes "
+          f"{sorted(L_.R for L_ in blk.launches)}, kernel vs plain mismatches "
+          f"{k2_mis}, kernel vs host DP (full band) mismatches {k2_host_mis}")
+    if k2_mis or k2_host_mis:
+        raise RuntimeError("K2 disagrees with its references")
+
+    # -- 4-7. the paths, each on the card and with the DP on the host -------
+    events = []           # CUDA events around every kernel launch of a run
+    captured = {}         # the largest batch of each kernel, for timing
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out
+        return wrapper
+
     run_many, launch = sd.DeviceDP.run_many, sd.DeviceDP.launch
-    events = []  # CUDA events around every DeviceDP launch of the run
+    scores3, dispatch_block = s3.swipe3_scores, sd.FullSweep.dispatch_block
 
-    def spy(self, requests):
+    def spy_k1(self, requests):
         n = sum(len(j) for _, _, j in requests)
-        if n > captured["n"]:
-            captured.update(n=n, reqs=requests)
+        if n > captured.get("k1", (-1,))[0]:
+            captured["k1"] = (n, requests)
         return run_many(self, requests)
 
-    def timed_launch(self, p, kernel=sd.banded_swipe_multi):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = launch(self, p, kernel)
-        ev[1].record()
-        events.append(ev)
+    def spy_k3(strands, jobs, *a):
+        n = sum(len(t) * (d1 - d0) for _, t, d0, d1 in jobs)
+        if n > captured.get("k3", (-1,))[0]:
+            captured["k3"] = (n, (strands, jobs))
+        return scores3(strands, jobs, *a, kernel=timed(s3.banded_swipe3))
+
+    def spy_k2(self, queries, tblock, t_order):
+        captured["k2"] = (0, (queries, tblock, t_order))
+        return dispatch_block(self, queries, tblock, t_order,
+                              kernel=timed(sd.full_swipe))
+
+    def drive(route, argv, out, host):
+        """One CLI run with every count and counter set to 0 just before."""
+        if host:
+            os.environ["DIAMOND_TPU_TORCH_DEVICE_DP"] = "0"
+        else:  # the default route
+            os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
+        sd.reset_dispatch_stats()
+        s3.dispatch_count = 0
+        sd.banded_swipe_multi.launches = 0
+        s3.banded_swipe3.launches = 0
+        sd.full_swipe.launches = 0
+        plog.prof_calls.clear()
+        plog.prof.clear()
+        events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with Patched((sd.DeviceDP, "run_many", spy_k1),
+                         (sd.DeviceDP, "launch", timed(launch)),
+                         (s3, "swipe3_scores", spy_k3),
+                         (sd.FullSweep, "dispatch_block", spy_k2)):
+                t0 = time.perf_counter()
+                rc = cli_main(argv + ["-o", out])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
+        if rc:
+            raise RuntimeError(f"{' '.join(argv[:1])} exited {rc}")
+        data = open(out, "rb").read()
+        busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        res = dict(
+            wall_s=wall, lines=len(data.decode().splitlines()),
+            sha=hashlib.sha256(data).hexdigest()[:16],
+            launches=dict(k1=sd.banded_swipe_multi.launches,
+                          k3=s3.banded_swipe3.launches,
+                          k2=sd.full_swipe.launches),
+            device_busy_s=busy, idle_share=1 - busy / wall,
+            device_jobs=plog.prof_calls.get("ext.device_jobs", 0),
+            device_cells=plog.prof_calls.get("ext.device_cells", 0),
+            host_score_cells=plog.prof_calls.get("ext.score_cells", 0),
+            host_tb_cells=plog.prof_calls.get("ext.tb_cells", 0),
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        phases = sorted(plog.prof.items(), key=lambda kv: -kv[1])[:10]
+        print(f"{route}: " + json.dumps(res))
+        print(f"{route} host phases (s): "
+              + json.dumps({k: round(v, 3) for k, v in phases}))
+        return res, data
+
+    def report(route, res, n, what):
+        print(f"{route}: {res['lines']} lines, sha {res['sha']}, "
+              f"{res['wall_s']:.2f} s, {n / res['wall_s']:.1f} {what}/s on "
+              f"{kind} ({name_power}); device busy {res['device_busy_s']:.4f}"
+              f" s, idle share {res['idle_share']:.4f}")
+
+    def both(name, argv, n, what, kernel):
+        out = {}
+        for route in ("card", "host"):
+            res, data = drive(f"{name} {route}", argv,
+                              os.path.join(tmp, f"{name}_{route}.out"),
+                              host=route == "host")
+            report(f"{name} {route}", res, n, what)
+            out[route] = (res, data)
+        card, host = out["card"][0], out["host"][0]
+        if out["card"][1] != out["host"][1]:
+            raise RuntimeError(f"{name}: card-DP and host-DP outputs differ")
+        if card["launches"][kernel] == 0:
+            raise RuntimeError(f"{name}: the path never launched {kernel}")
+        if any(host["launches"].values()):
+            raise RuntimeError(f"{name}: the host route launched a kernel")
+        print(f"{name}: outputs identical ({card['lines']} lines, sha "
+              f"{card['sha']}); {kernel} launches {card['launches'][kernel]}")
         return out
 
     recs = make_proteins(seed=args.seed)
     n_letters = sum(len(s) for _, s in recs)
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         db = os.path.join(tmp, "db.faa")
-        qf = os.path.join(tmp, "q.faa")
         write_fasta(db, recs)
+        print(f"synthetic protein set: {len(recs)} sequences, {n_letters} "
+              f"letters, seed {args.seed}")
+
+        phase("main path: blastp self-search")
         n_q = min(args.queries, len(recs))
+        qf = os.path.join(tmp, "q.faa")
         write_fasta(qf, recs[:n_q])
         if n_q < len(recs):
             print(f"query count cut to {n_q} of {len(recs)} (DB kept whole)")
-        print(f"synthetic set: {len(recs)} sequences, {n_letters} letters, "
-              f"seed {args.seed}")
-        runs = {}
-        for route in ("card", "host"):
-            if route == "card":  # the default route
-                os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
-            else:
-                os.environ["DIAMOND_TPU_TORCH_DEVICE_DP"] = "0"
-            out = os.path.join(tmp, f"out_{route}.tsv")
-            sd.reset_dispatch_stats()
-            sd.banded_swipe_multi.launches = 0
-            plog.prof_calls.clear()
-            plog.prof.clear()
-            torch.cuda.reset_peak_memory_stats()
-            events.clear()
-            sd.DeviceDP.run_many, sd.DeviceDP.launch = spy, timed_launch
-            try:
-                t0 = time.perf_counter()
-                rc = cli_main(["blastp", "-q", qf, "-d", db, "-f", "6",
-                               "-o", out])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                sd.DeviceDP.run_many, sd.DeviceDP.launch = run_many, launch
-            if rc:
-                raise RuntimeError(f"blastp exited {rc}")
-            data = open(out, "rb").read()
-            lines = data.decode().splitlines()
-            runs[route] = dict(
-                wall_s=wall, lines=len(lines),
-                sha=hashlib.sha256(data).hexdigest()[:16],
-                k1_launches=sd.banded_swipe_multi.launches,
-                device_jobs=plog.prof_calls.get("ext.device_jobs", 0),
-                device_cells=plog.prof_calls.get("ext.device_cells", 0),
-                host_score_jobs=plog.prof_calls.get("ext.score_jobs", 0),
-                host_score_cells=plog.prof_calls.get("ext.score_cells", 0),
-                host_tb_jobs=plog.prof_calls.get("ext.tb_jobs", 0),
-                host_tb_cells=plog.prof_calls.get("ext.tb_cells", 0),
-                device_wait_s=sd.dispatch_wait_s,
-                device_busy_s=sum(a.elapsed_time(b) for a, b in events) / 1e3,
-                max_memory_allocated=torch.cuda.max_memory_allocated())
-            phases = sorted(plog.prof.items(), key=lambda kv: -kv[1])[:12]
-            selfs = {ln.split("\t")[0] for ln in lines
-                     if ln.split("\t")[0] == ln.split("\t")[1]}
-            print(f"{route}: " + json.dumps(runs[route]))
-            print(f"{route} host phases (s): "
-                  + json.dumps({k: round(v, 3) for k, v in phases}))
-            print(f"{route}: {len(lines)} lines, sha {runs[route]['sha']}, "
-                  f"{wall:.2f} s, {n_q / wall:.1f} queries/s on {kind} "
-                  f"({name_power}); self hits {len(selfs)}/{n_q}; device "
-                  f"busy {runs[route]['device_busy_s']:.4f} s, idle share "
-                  f"{1 - runs[route]['device_busy_s'] / wall:.4f}")
-            if len(selfs) != n_q:
-                raise RuntimeError("a query did not find itself")
-        os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
-    card, host = runs["card"], runs["host"]
-    if card["sha"] != host["sha"] or card["lines"] != host["lines"]:
-        raise RuntimeError("card-DP and host-DP outputs differ")
-    if card["k1_launches"] == 0:
-        raise RuntimeError("the main path never launched the kernel")
-    print(f"outputs identical: {card['lines']} lines, sha {card['sha']}; "
-          f"kernel launches {card['k1_launches']}")
+        out = both("blastp", ["blastp", "-q", qf, "-d", db, "-f", "6"],
+                   n_q, "queries", "k1")
+        lines = out["card"][1].decode().splitlines()
+        selfs = {ln.split("\t")[0] for ln in lines
+                 if ln.split("\t")[0] == ln.split("\t")[1]}
+        print(f"blastp: self hits {len(selfs)}/{n_q}")
+        if len(selfs) != n_q:
+            raise RuntimeError("a query did not find itself")
+        paths["k1"] = out["card"][0]
 
-    # -- 5. timing ----------------------------------------------------------
+        phase("blastx --long-reads (3-frame DP, K3)")
+        reads = make_reads(recs, args.long_reads, 2000, 8000,
+                           indels_per_kb=1.0, seed=args.seed + 10)
+        rf = os.path.join(tmp, "long.fna")
+        write_fasta(rf, reads)
+        print(f"long reads: {len(reads)}, {sum(len(s) for _, s in reads)} nt, "
+              f"2-8 kb, ~1 indel/kb, 1% substitutions, half reverse "
+              f"complemented")
+        out = both("blastx-long-reads", ["blastx", "-q", rf, "-d", db,
+                                         "--long-reads", "-f", "6"],
+                   len(reads), "reads", "k3")
+        hit = source_hits(out["card"][1].decode().splitlines())
+        print(f"blastx-long-reads: {len(hit)}/{len(reads)} reads hit their "
+              f"source protein")
+        if len(hit) < 0.95 * len(reads):
+            raise RuntimeError("fewer than 95% of the long reads hit their "
+                               "source protein")
+        paths["k3"] = out["card"][0]
+
+        phase("blastx six-frame (host DP, as in the reference)")
+        reads = make_reads(recs, args.short_reads, 300, 1500,
+                           seed=args.seed + 11)
+        rf = os.path.join(tmp, "short.fna")
+        write_fasta(rf, reads)
+        res, data = drive("blastx card", ["blastx", "-q", rf, "-d", db,
+                                          "-f", "6"],
+                          os.path.join(tmp, "short.out"), host=False)
+        report("blastx", res, len(reads), "reads")
+        hit = source_hits(data.decode().splitlines())
+        print(f"blastx: {len(reads)} reads of 300-1500 nt, {len(hit)} hit "
+              f"their source protein; kernel launches {res['launches']}")
+        if len(hit) < 0.95 * len(reads):
+            raise RuntimeError("fewer than 95% of the reads hit their "
+                               "source protein")
+
+        phase("blastp --swipe (full-matrix sweep, K2)")
+        n_sw = min(args.swipe_queries, len(recs))
+        qf = os.path.join(tmp, "q_swipe.faa")
+        write_fasta(qf, recs[:n_sw])
+        cells = sum(len(s) for _, s in recs[:n_sw]) * n_letters
+        print(f"--swipe: {n_sw} queries x {len(recs)} targets, {cells} cells")
+        out = both("blastp-swipe", ["blastp", "-q", qf, "-d", db, "--swipe",
+                                    "-f", "6"], n_sw, "queries", "k2")
+        paths["k2"] = out["card"][0]
+
+    # -- 8. timing ----------------------------------------------------------
     phase("kernel timing at main-path shapes")
-    big = captured["reqs"]
-    p = sd.pack_requests(big, "cuda")
+    rows = []
+
+    def time_kernel(name, kern, plain, cells, ops, note, n_bytes, reps):
+        got, want = kern(), plain()
+        if diff(name, got, want):
+            raise RuntimeError(f"{name} disagrees with its plain version on "
+                               f"the main-path batch")
+        kern()
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 1)
+        bound_ms, bound_by = bound(cells, ops, n_bytes)
+        print(f"{name}: {cells} cells, {n_bytes} bytes; {ops} int32 ops/cell "
+              f"({note}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), library_ms null; {kind}, "
+              f"{name_power}")
+        return ms, plain_ms, bound_ms, bound_by
+
+    # K1 on the largest DeviceDP batch of the blastp run
+    p = sd.pack_requests(captured["k1"][1], "cuda")
 
     def per_class(fn):  # one call per band class, as DeviceDP.launch makes
-        return [fn(p.t_cat, p.q_cat, p.bias_cat, p.jobs[lo:hi], p.reqs,
-                   dp._m32, dp.go, dp.ge, R) for R, lo, hi in p.classes]
+        return [o for R, lo, hi in p.classes
+                for o in fn(p.t_cat, p.q_cat, p.bias_cat, p.jobs[lo:hi],
+                            p.reqs, dp._m32, dp.go, dp.ge, R)]
 
-    kern = lambda: per_class(sd.banded_swipe_multi)  # noqa: E731
-    plain = lambda: per_class(sd.banded_swipe_multi_plain)  # noqa: E731
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max().item())
-              for gc, wc in zip(got, want) for g, w in zip(gc, wc))
-    max_abs_err = max(max_abs_err, err)
-    if err:
-        raise RuntimeError("kernel disagrees with its plain version on the "
-                           "main-path batch")
-    kern()
-    ms = cuda_ms(kern, 10)
-    plain_ms = cuda_ms(plain, 2)
     jobs = p.jobs.cpu().numpy().astype(np.int64)
     reqs_np = p.reqs.cpu().numpy().astype(np.int64)
     cells = int(band_cells(jobs[:, 1], reqs_np[jobs[:, 4], 1], jobs[:, 2],
@@ -344,36 +689,84 @@ def main(argv=None):
     n_bytes = (p.t_cat.numel() + p.q_cat.numel() + p.bias_cat.numel()
                + 4 * (p.jobs.numel() + p.reqs.numel() + 32 * 32)
                + 3 * 4 * p.n_jobs)
-    ops_s = cells * OPS_PER_CELL / (H100_SMS * INT32_LANES_PER_SM
-                                    * sm_clock_mhz * 1e6)
-    bytes_s = n_bytes / HBM_BYTES_PER_S
-    bound_ms = max(ops_s, bytes_s) * 1e3
-    bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    print(f"batch: {p.n_jobs} jobs in {len(big)} requests, classes "
-          f"{[(R * 32, hi - lo) for R, lo, hi in p.classes]}, {cells} band "
-          f"cells, {n_bytes} bytes; {OPS_PER_CELL} int32 ops/cell "
-          f"({CELL_OPS_NOTE})")
-    print(f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {cells} cells x {OPS_PER_CELL} / "
-          f"({H100_SMS} SMs x {INT32_LANES_PER_SM} lanes x "
-          f"{sm_clock_mhz:.0f} MHz)), library_ms null; {kind}, "
-          f"{name_power}")
+    print(f"K1 batch: {p.n_jobs} jobs in {len(captured['k1'][1])} requests, "
+          f"classes {[(R * 32, hi - lo) for R, lo, hi in p.classes]}")
+    rows.append(("k1", time_kernel(
+        "k1", lambda: per_class(sd.banded_swipe_multi),
+        lambda: per_class(sd.banded_swipe_multi_plain), cells, K1_OPS,
+        K1_NOTE, n_bytes, 10)))
 
+    # K3 on the largest 3-frame batch of the --long-reads run
+    strands, jobs3 = captured["k3"][1]
+    pk = s3.pack_swipe3(strands, jobs3)
+    x3 = {k: torch.from_numpy(v).cuda() for k, v in pk.items()}
+    K = np.array([s3.offsets_per_lane(int(b)) for b in pk["jobs"][:, 3]])
+    sel = [(int(k), torch.from_numpy(pk["jobs"][K == k]).cuda())
+           for k in np.unique(K)]
+
+    def k3_call(fn):
+        return [o for k, jb in sel
+                for o in fn(x3["t_cat"], x3["q_cat"], jb, x3["reqs"], m32,
+                            go, ge, fs, k)]
+
+    cells = int(swipe3_cells(pk["jobs"], pk["reqs"]).sum())
+    n_bytes = (len(pk["t_cat"]) + len(pk["q_cat"]) + 4 * pk["jobs"].size
+               + 4 * pk["reqs"].size + 4 * 32 * 32 + 2 * 4 * len(pk["jobs"]))
+    print(f"K3 batch: {len(jobs3)} jobs over both strands of one read, band "
+          f"classes {[(32 * k, int((K == k).sum())) for k, _ in sel]}")
+    rows.append(("k3", time_kernel(
+        "k3", lambda: k3_call(s3.banded_swipe3),
+        lambda: k3_call(s3.banded_swipe3_plain), cells, K3_OPS, K3_NOTE,
+        n_bytes, 20)))
+
+    # K2 on the largest launch of the --swipe run
+    queries, tblock, t_order = captured["k2"][1]
+    blk = sweep.pack(queries, tblock, t_order)
+    L = max(blk.launches, key=lambda L_: L_.cells)
+    x2 = {k: torch.from_numpy(getattr(blk, k)).cuda()
+          for k in ("t_cat", "targets", "q_cat", "bias_cat")}
+    r2, p2 = (torch.from_numpy(a).cuda() for a in (L.reqs, L.pairs))
+    scratch = torch.empty((L.slots, 2, len(blk.t_cat), 2), dtype=torch.int32,
+                          device="cuda")
+
+    def k2_call(fn):
+        o = torch.zeros((blk.n_queries, blk.n_targets), dtype=torch.int32,
+                        device="cuda")
+        return [fn(x2["t_cat"], x2["targets"], x2["q_cat"], x2["bias_cat"],
+                   r2, p2, m32, go, ge, L.R, scratch, o)]
+
+    n_bytes = (len(blk.t_cat) + 4 * blk.targets.size + len(blk.q_cat)
+               + len(blk.bias_cat) + 4 * (L.reqs.size + L.pairs.size + 32 * 32)
+               + 4 * len(L.pairs))
+    print(f"K2 batch: {len(L.pairs)} pairs, {L.R} rows per lane, "
+          f"{L.slots} multi-strip queries, of {len(blk.launches)} launches")
+    rows.append(("k2", time_kernel(
+        "k2", lambda: k2_call(sd.full_swipe),
+        lambda: k2_call(sd.full_swipe_plain), L.cells, K2_OPS, K2_NOTE,
+        n_bytes, 3)))
+
+    meta = {
+        "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
+               "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)"),
+        "k3": ("banded_swipe3", "diamond_tpu_torch/csrc/swipe3.cu",
+               "diamond_tpu/ops/swipe3_pallas.py:123 (banded_swipe3_pallas)"),
+        "k2": ("full_swipe", "diamond_tpu_torch/csrc/full_swipe.cu",
+               "diamond_tpu/ops/swipe_device.py:789 (full_swipe_pallas_sweep)"),
+    }
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": "banded_swipe_multi",
+        "name": meta[k][0],
         "route": "cuda",
-        "source": "diamond_tpu_torch/csrc/banded_swipe.cu",
-        "replaces": "diamond_tpu/ops/swipe_device.py:229 "
-                    "(banded_swipe_pallas_multi)",
-        "launches": card["k1_launches"],
-        "mismatches": raw_mis + host_mis,
-        "max_abs_err": max_abs_err,
+        "source": meta[k][1],
+        "replaces": meta[k][2],
+        "launches": paths[k]["launches"][k],
+        "max_abs_err": max_err[k],
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    } for k, (ms, plain_ms, bound_ms, bound_by) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,14 +1,18 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The argparse surface is diamond_tpu's (reference src/run/main.cpp:73-234), so
-flags parse identically.  This slice of the port runs ``blastp`` (FASTA,
-``.dmnd`` and BLAST database inputs; ``-f 6/0/5/101/103/104``); every other
-command, and every ``blastp`` option whose modules are not ported yet, exits
-with a message naming its ROADMAP.md item.
+flags parse identically.  The port runs ``blastp`` (FASTA, ``.dmnd`` and
+BLAST database inputs) and ``blastx`` (FASTA or FASTQ reads; ``-F``,
+``--long-reads``, ``--range-culling``, ``--strand``, ``--min-orf``,
+``--query-gencode``), both with ``--swipe``, in ``-f 6/0/5/101/103/104``;
+every other command, and every option whose modules are not ported yet,
+exits with a message naming its ROADMAP.md item.
 
-The extension DP runs on the CUDA card unless DIAMOND_TPU_TORCH_DEVICE=cpu
-asks for the CPU; without a card and without that request, ``blastp``
-exits with an error (see utils/device.py for the DP routing knobs).
+The device DP (the extension rounds of ``blastp``, the 3-frame DP of
+``blastx -F``, the ``blastp --swipe`` sweep) runs on the CUDA card unless
+DIAMOND_TPU_TORCH_DEVICE=cpu asks for the CPU; without a card and without
+that request, the search exits with an error (see utils/device.py for the
+DP routing knobs).
 """
 from __future__ import annotations
 
@@ -308,13 +312,11 @@ def _not_ported(what: str, item: str):
 
 
 def check_ported(args):
-    """Exit on a blastp option whose modules this slice does not have."""
+    """Exit on a search option whose modules the port does not have yet."""
     if (args.block_size is not None or args.memory_limit
             or args.multiprocessing or args.mp_init or args.mp_recover):
         _not_ported("Blocked search (-b, -M, --multiprocessing)",
                     "section 1, item 12")
-    if args.swipe:
-        _not_ported("--swipe", "section 1, item 6")
     if args.iterate is not None:
         _not_ported("--iterate", "section 1, item 15")
     if args.global_ranking:
@@ -337,16 +339,21 @@ def check_ported(args):
         _not_ported("--target-indexed", "section 1, item 17")
 
 
+def _device(command: str) -> str:
+    from diamond_tpu_torch.utils.device import NoDeviceError, resolve_device
+
+    try:
+        return resolve_device()
+    except (NoDeviceError, ValueError) as e:
+        raise SystemExit(f"{command}: {e}")
+
+
 def cmd_blastp(args):
     from diamond_tpu_torch.search.config import SearchConfig
     from diamond_tpu_torch.search.pipeline import Pipeline
-    from diamond_tpu_torch.utils.device import NoDeviceError, resolve_device
 
     check_ported(args)
-    try:
-        device = resolve_device()
-    except (NoDeviceError, ValueError) as e:
-        raise SystemExit(f"blastp: {e}")
+    device = _device("blastp")
     qb = load_block(args.query)
     tb, taxonomy = load_block(args.db, with_taxonomy=True)
     tb, taxonomy, db_letters = apply_taxon_filter(tb, taxonomy,
@@ -377,13 +384,97 @@ def cmd_blastp(args):
         db_letters=db_letters,
         algo=args.algo,
     )
-    results = Pipeline(cfg, qb, tb, device=device).search()
+    if args.swipe:
+        from diamond_tpu_torch.align.swipe_all import swipe_all_protein
+
+        results = swipe_all_protein(qb, tb, cfg)
+    else:
+        results = Pipeline(cfg, qb, tb, device=device).search()
     out = _open_out(args)
     write_results(out, args.outfmt, results, qb, tb, cfg.matrix,
                   taxonomy=taxonomy, db_path=args.db,
                   max_evalue=cfg.max_evalue,
                   hauser=_cbs_hauser(cfg.comp_based_stats),
                   invocation=" ".join(sys.argv))
+    if out is not sys.stdout:
+        out.close()
+
+
+def cmd_blastx(args):
+    from diamond_tpu_torch.data.fasta import (read_fastq_full, read_seqs,
+                                              sniff_format)
+    from diamond_tpu_torch.search.blastx import (TranslatedQueries,
+                                                 blastx_search)
+    from diamond_tpu_torch.search.config import SearchConfig
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    # --long-reads = --range-culling --top 10 -F 15 (reference config.cpp:680)
+    if args.long_reads:
+        args.range_culling = True
+        if args.top is None:
+            args.top = 10.0
+        if args.frameshift == 0:
+            args.frameshift = 15
+    if args.range_culling and args.frameshift == 0:
+        raise SystemExit("Query range culling is only supported in frameshift "
+                         "alignment mode (option -F).")
+    check_ported(args)
+    if args.comp_based_stats >= 2:
+        # reference run/config.cpp: matrix adjust needs untranslated queries
+        raise SystemExit("This mode of composition based stats is not "
+                         "supported for translated searches.")
+    _device("blastx")
+    quals = None
+    if sniff_format(args.query) == "fastq":
+        full = list(read_fastq_full(args.query))
+        qrecs = [(i, s) for i, s, _ in full]
+        quals = [q for _, _, q in full]
+    else:
+        qrecs = list(read_seqs(args.query))
+    tb, taxonomy = load_block(args.db, with_taxonomy=True)
+    tb, taxonomy, db_letters = apply_taxon_filter(tb, taxonomy,
+                                                   args.taxonlist,
+                                                   args.taxon_exclude)
+    queries = TranslatedQueries(qrecs, gencode=args.query_gencode,
+                                frameshift=args.frameshift,
+                                min_orf=args.min_orf or 0,
+                                strand=args.strand)
+    cfg = SearchConfig(
+        matrix=ScoreMatrix(args.matrix, args.gapopen, args.gapextend,
+                           frame_shift=args.frameshift),
+        sensitivity=args.sensitivity,
+        comp_based_stats=args.comp_based_stats,
+        max_evalue=args.evalue,
+        max_target_seqs=args.max_target_seqs,
+        max_hsps=args.max_hsps,
+        toppercent=args.top,
+        index_chunks=args.index_chunks,
+        masking=args.masking,
+        min_id=args.min_id,
+        query_cover=args.query_cover,
+        subject_cover=args.subject_cover,
+        translated=True,
+        n_shapes=args.shapes,
+        frame_shift=args.frameshift,
+        query_range_culling=args.range_culling,
+        query_range_cover=args.range_cover,
+        db_letters=db_letters,
+        algo=args.algo,
+    )
+    if args.swipe:
+        from diamond_tpu_torch.search.blastx import blastx_swipe_all
+
+        results = blastx_swipe_all(queries, tb, cfg)
+    else:
+        results = blastx_search(queries, tb, cfg)
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    write_results(out, args.outfmt, results, queries.block, tb, cfg.matrix,
+                  taxonomy=taxonomy, db_path=args.db,
+                  max_evalue=cfg.max_evalue, invocation=" ".join(sys.argv),
+                  program="blastx", dna_lens=queries.dna_lens,
+                  quals=quals,
+                  hauser=_cbs_hauser(cfg.comp_based_stats),
+                  query_names=[i.split()[0] for i in queries.source_ids])
     if out is not sys.stdout:
         out.close()
 
@@ -541,7 +632,7 @@ def _dispatch(args):
     if args.command == "blastp":
         cmd_blastp(args)
     elif args.command == "blastx":
-        _not_ported("blastx", "section 1, item 7")
+        cmd_blastx(args)
     elif args.command is None:
         build_parser().print_help()
         return 1

@@ -78,3 +78,15 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         lib = _libs[name] = ctypes.CDLL(_so_path(name))
     return lib
+
+
+def launcher(name: str, symbol: str, args: str):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` returning a CUDA
+    error code, its arguments typed by ``args``: one letter per argument,
+    ``p`` a pointer (device pointers and the stream), ``i`` an int."""
+    fn = getattr(library(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
+                       for a in args]
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,4 +1,5 @@
-"""Cross-query batched score-only banded SWIPE on the card.
+"""Score-only SWIPE on the card: the banded extension DP and the full-matrix
+``--swipe`` sweep.
 
 ``DeviceDP.run_many`` takes the score-only DP jobs of a whole extension round
 (many queries, each with its own jobs) and scores them with one kernel launch
@@ -8,14 +9,19 @@ per band class.  The kernel, ``banded_swipe_multi`` (CUDA C++ in
 PyTorch version ``banded_swipe_multi_plain`` computes the same function with
 tensor ops and is what the wrapper runs for tensors on the CPU.
 
-The batch is flat and ragged: concatenated int8 target letters with per-job
-offset and length, per-job diagonal start ``d0``, band and request index,
-concatenated int8 query letters and bias with per-request offsets.  Scores
-are exact int32, so the output never depends on which jobs were routed here.
+``FullSweep.dispatch_block`` scores every (query, target) pair of a
+``--swipe`` search with the full-matrix kernel ``full_swipe`` (CUDA C++ in
+``csrc/full_swipe.cu``), which replaces the TPU kernel
+``diamond_tpu/ops/swipe_device.py:full_swipe_pallas_sweep``; its plain
+version is ``full_swipe_plain``.
+
+The batches are flat and ragged: concatenated int8 target letters with
+per-job (or per-target) offset and length, concatenated int8 query letters
+and bias with per-request offsets.  Scores are exact int32, so the output
+never depends on which jobs were routed here.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 import time
 
@@ -80,18 +86,23 @@ def job_fits_device(tgt_len: int, d0: int, d1: int) -> bool:
 # The kernel's wrapper and its plain version
 # ---------------------------------------------------------------------------
 
-def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
-    dev = t_cat.device
-    for name, x, dt in (("t_cat", t_cat, torch.int8), ("q_cat", q_cat, torch.int8),
-                        ("bias_cat", bias_cat, torch.int8),
-                        ("jobs", jobs, torch.int32), ("reqs", reqs, torch.int32),
-                        ("matrix32", matrix32, torch.int32)):
+def check_tensors(dev, *named):
+    """Each (name, tensor, dtype) lies on ``dev``, has that dtype and is
+    contiguous; raises otherwise (the kernels take raw pointers)."""
+    for name, x, dt in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, t_cat on {dev}")
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
+    i8, i32 = torch.int8, torch.int32
+    check_tensors(t_cat.device, ("t_cat", t_cat, i8), ("q_cat", q_cat, i8),
+                  ("bias_cat", bias_cat, i8), ("jobs", jobs, i32),
+                  ("reqs", reqs, i32), ("matrix32", matrix32, i32))
     if t_cat.dim() != 1 or q_cat.dim() != 1 or bias_cat.shape != q_cat.shape:
         raise ValueError("t_cat, q_cat and bias_cat must be 1-D, "
                          "bias_cat shaped like q_cat")
@@ -105,20 +116,11 @@ def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
         raise ValueError(f"rows_per_lane must be one of {ROWS_PER_LANE}")
 
 
-_k1_fn = None
-
-
 def _k1():
-    global _k1_fn
-    if _k1_fn is None:
-        from diamond_tpu_torch.ops import _cuda
+    from diamond_tpu_torch.ops import _cuda
 
-        fn = _cuda.library("banded_swipe").banded_swipe_multi_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _k1_fn = fn
-    return _k1_fn
+    return _cuda.launcher("banded_swipe", "banded_swipe_multi_launch",
+                          "ippppppiiipppp")
 
 
 def banded_swipe_multi(t_cat, q_cat, bias_cat, jobs, reqs, matrix32,
@@ -413,3 +415,357 @@ def from_pallas_batch(t_idx8, band_mask8, q_let8, q_bias8, q_valid8,
         jobs=np.ascontiguousarray(jobs),
         reqs=np.asarray(reqs, dtype=np.int32).reshape(-1, 2),
     ), rows_per_lane(band)
+
+
+# ---------------------------------------------------------------------------
+# --swipe: the full-matrix sweep (every query against every target)
+# ---------------------------------------------------------------------------
+
+STRIP_LANE_ROWS = 16                  # most query rows a lane holds
+STRIP_ROWS = 32 * STRIP_LANE_ROWS     # query rows one warp walks per pass
+TGT_COLS = 2                          # targets[t] = (t_off, t_len)
+SWEEP_REQ_COLS = 3                    # reqs[r] = (q_off, q_len, slot)
+PAIR_COLS = 2                         # pairs[k] = (req, tgt)
+MAX_SWEEP_PAIRS = 1 << 22             # pairs per launch
+
+
+def sweep_shape(q_len: int):
+    """(rows per lane, strips) of a query: strips of at most STRIP_ROWS rows,
+    the rows spread evenly over the strips and the warp's 32 lanes."""
+    strips = max(1, -(-q_len // STRIP_ROWS))
+    return max(1, -(-q_len // (32 * strips))), strips
+
+
+def _check_sweep(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32, R,
+                 scratch, out):
+    i8, i32 = torch.int8, torch.int32
+    check_tensors(t_cat.device, ("t_cat", t_cat, i8),
+                  ("targets", targets, i32), ("q_cat", q_cat, i8),
+                  ("bias_cat", bias_cat, i8), ("reqs", reqs, i32),
+                  ("pairs", pairs, i32), ("matrix32", matrix32, i32),
+                  ("scratch", scratch, i32), ("out", out, i32))
+    if t_cat.dim() != 1 or q_cat.dim() != 1 or bias_cat.shape != q_cat.shape:
+        raise ValueError("t_cat, q_cat and bias_cat must be 1-D, "
+                         "bias_cat shaped like q_cat")
+    for name, x, cols in (("targets", targets, TGT_COLS),
+                          ("reqs", reqs, SWEEP_REQ_COLS),
+                          ("pairs", pairs, PAIR_COLS)):
+        if x.dim() != 2 or x.shape[1] != cols:
+            raise ValueError(f"{name} must be [n, {cols}], got {tuple(x.shape)}")
+    if tuple(matrix32.shape) != (32, 32):
+        raise ValueError(f"matrix32 must be [32, 32], got {tuple(matrix32.shape)}")
+    if scratch.dim() != 4 or tuple(scratch.shape[1:]) != (2, t_cat.numel(), 2):
+        raise ValueError("scratch must be [slots, 2, len(t_cat), 2]")
+    if out.dim() != 2 or out.shape[1] != targets.shape[0]:
+        raise ValueError("out must be [n_reqs, n_targets]")
+    if not 1 <= R <= STRIP_LANE_ROWS:
+        raise ValueError(f"rows_per_lane must be in 1..{STRIP_LANE_ROWS}")
+
+
+def _k2():
+    from diamond_tpu_torch.ops import _cuda
+
+    return _cuda.launcher("full_swipe", "full_swipe_launch",
+                          "ipppppppiiiipipp")
+
+
+def full_swipe(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
+               go: int, ge: int, rows_per_lane: int, scratch, out):
+    """Best local score of the full matrix for every (query, target) pair.
+
+    t_cat int8 [Lt] with targets int32 [nt, 2] rows (t_off, t_len); q_cat /
+    bias_cat int8 [Lq] with reqs int32 [m, 3] rows (q_off, q_len, slot);
+    pairs int32 [n, 2] rows (req, tgt); matrix32 int32 [32, 32]; go = gap
+    open + extend, ge = gap extend.  Every query of the launch has rows per
+    lane ``rows_per_lane`` (``sweep_shape``); a query of more than one strip
+    carries each strip's last row to the next through its ``slot`` of
+    scratch int32 [slots, 2, Lt, 2] (slot -1: one strip).  Writes each
+    pair's score to out int32 [m, nt] at (req, tgt) and returns out.
+
+    CUDA tensors launch the kernel (counted in ``full_swipe.launches``); CPU
+    tensors run ``full_swipe_plain``.
+    """
+    _check_sweep(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
+                 rows_per_lane, scratch, out)
+    dev = t_cat.device
+    if dev.type == "cpu":
+        return full_swipe_plain(t_cat, targets, q_cat, bias_cat, reqs, pairs,
+                                matrix32, go, ge, rows_per_lane, scratch, out)
+    if dev.type != "cuda":
+        raise ValueError(f"full_swipe runs on cuda or cpu, not {dev}")
+    n = pairs.shape[0]
+    if n == 0:
+        return out
+    if t_cat.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
+        raise ValueError("full_swipe batch exceeds int32 offsets")
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _k2()(rows_per_lane, t_cat.data_ptr(), targets.data_ptr(),
+                    q_cat.data_ptr(), bias_cat.data_ptr(), reqs.data_ptr(),
+                    pairs.data_ptr(), matrix32.data_ptr(), n,
+                    out.shape[1], int(go), int(ge), scratch.data_ptr(),
+                    t_cat.numel(), out.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"full_swipe launch failed: CUDA error {err}")
+    full_swipe.launches += 1
+    return out
+
+
+full_swipe.launches = 0
+
+
+def full_swipe_plain(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
+                     go: int, ge: int, rows_per_lane: int, scratch, out):
+    """The kernel's function in tensor ops over [pairs, longest query] (no
+    strips), one target column per step, pairs ordered by target length so
+    that finished pairs drop out; exact int32, on whatever device the inputs
+    are on."""
+    dev = t_cat.device
+    i32 = torch.int32
+    n = pairs.shape[0]
+    if n == 0:
+        return out
+    req, tgt = pairs.long().unbind(1)
+    t_len = targets[tgt, 1].long()
+    order = torch.argsort(t_len, descending=True, stable=True)
+    req, tgt, t_len = req[order], tgt[order], t_len[order]
+    t_off = targets[tgt, 0].long()
+    q_off, q_len = reqs[req, 0].long(), reqs[req, 1].long()
+    Q = max(int(q_len.max()), 1)
+    i = torch.arange(Q, device=dev)
+    i_ge = (i * ge).to(i32)
+    valid = i[None, :] < q_len[:, None]
+    idx = (q_off[:, None] + i).clamp(0, max(q_cat.numel() - 1, 0))
+    ql = q_cat[idx].long() & 31
+    qb = bias_cat[idx].to(i32)
+    M = matrix32.long()
+    H = torch.zeros(n, Q, dtype=i32, device=dev)
+    E = torch.zeros(n, Q, dtype=i32, device=dev)
+    best = torch.zeros(n, dtype=i32, device=dev)
+    # active[j]: pairs whose target has a column j (a prefix: sorted by length)
+    lens = t_len.cpu().numpy()
+    n_cols = int(lens[0]) if len(lens) else 0
+    active = np.searchsorted(-lens, -np.arange(n_cols), side="left")
+    t_last = max(t_cat.numel() - 1, 0)
+    for j in range(n_cols):
+        a = int(active[j])
+        H, E = H[:a], E[:a]
+        tl = t_cat[(t_off[:a] + j).clamp(max=t_last)].long() & 31
+        s = M[ql[:a], tl[:, None]].to(i32) + qb[:a]
+        diag = torch.cat([torch.zeros(a, 1, dtype=i32, device=dev),
+                          H[:, :-1]], dim=1)
+        cur0 = torch.maximum(diag + s, E).clamp_min(0)
+        gmax = torch.cummax(cur0 - go + i_ge, dim=1).values
+        F = (gmax - i_ge).clamp_min(0)
+        Fs = torch.cat([torch.zeros(a, 1, dtype=i32, device=dev), F[:, :-1]],
+                       dim=1)
+        Hn = torch.where(valid[:a], torch.maximum(cur0, Fs), 0)
+        best[:a] = torch.maximum(best[:a], Hn.max(dim=1).values)
+        E = torch.maximum(E - ge, Hn - go).clamp_min(0)
+        H = Hn
+    out[req, tgt] = best
+    return out
+
+
+class SweepLaunch:
+    """One full_swipe launch of a packed block: numpy inputs (reqs, pairs)
+    over the block's shared t_cat / targets / q_cat / bias_cat, the rows per
+    lane, scratch slots, and the cells the pairs need (q_len x t_len)."""
+
+    __slots__ = ("R", "reqs", "pairs", "slots", "cells", "walk_cells")
+
+
+class SweepBlock:
+    """A packed dispatch_block: the shared numpy inputs and the launches."""
+
+    __slots__ = ("t_cat", "targets", "q_cat", "bias_cat", "launches",
+                 "n_queries", "n_targets")
+
+
+class FullSweep:
+    """--swipe device scheduler: the target letters go to the card once per
+    dispatch_block, every query group then sweeps them, and the scores come
+    back as one [n_queries, n_targets] int32 matrix (the role of the
+    reference's full-DB SWIPE search, src/align/full_db.cpp +
+    dp/swipe/full_swipe.h).
+
+    One warp scores one (query, target) pair, walking the target one column
+    at a time over a strip of up to STRIP_ROWS query rows held in registers;
+    longer queries take several strips, carried through scratch on the card.
+    Every pair of a length-capped block fits; the caps bound the cells one
+    warp walks alone (8192 x 8192 is tens of ms for one warp), and longer
+    sequences take the host striped engine, overlapped with the card's work
+    (align/swipe_all).
+    """
+
+    MAX_LEN = 8192       # walked targets
+    MAX_ROW_LEN = 8192   # query rows (16 strips)
+    SCRATCH_BYTES = 1 << 30  # strip carries of one launch
+
+    def __init__(self, matrix32, gap_open: int, gap_extend: int,
+                 device: str | None = None):
+        self.device = torch.device(resolve_device(device))
+        self._m32 = torch.tensor(np.asarray(matrix32), dtype=torch.int32,
+                                 device=self.device)
+        self.go = gap_open + gap_extend
+        self.ge = gap_extend
+
+    def pack(self, queries, tblock, t_order) -> SweepBlock:
+        """queries: [(q_letters, bias_or_None)]; t_order: target block ids.
+        One launch per rows-per-lane class and query group; pairs ordered by
+        the cells a warp walks, most first."""
+        t_order = np.asarray(t_order, dtype=np.int64)
+        b = SweepBlock()
+        b.n_queries, b.n_targets = len(queries), len(t_order)
+        tl = tblock.lengths[t_order].astype(np.int64)
+        t_off = np.zeros(len(tl), np.int64)
+        np.cumsum(tl[:-1], out=t_off[1:])
+        src = np.repeat(tblock.starts[t_order].astype(np.int64) - t_off, tl) \
+            + np.arange(int(tl.sum()), dtype=np.int64)
+        b.t_cat = (tblock.letters[src] & 31).astype(np.int8)
+        b.targets = np.stack([t_off, tl], axis=1).astype(np.int32)
+        q_lens = np.fromiter((len(q) for q, _ in queries), np.int64,
+                             len(queries))
+        q_off = np.zeros(len(queries), np.int64)
+        np.cumsum(q_lens[:-1], out=q_off[1:])
+        b.q_cat = np.zeros(int(q_lens.sum()), np.int8)
+        b.bias_cat = np.zeros(int(q_lens.sum()), np.int8)
+        for k, (q, bias) in enumerate(queries):
+            a, e = q_off[k], q_off[k] + q_lens[k]
+            b.q_cat[a:e] = np.asarray(q, dtype=np.int8) & 31
+            if bias is not None:
+                bias = np.asarray(bias)
+                if len(bias) and (bias.min() < -128 or bias.max() > 127):
+                    raise ValueError("query bias outside int8")
+                b.bias_cat[a:e] = bias
+        if len(b.t_cat) >= 2 ** 31 or len(b.q_cat) >= 2 ** 31:
+            raise ValueError("FullSweep block exceeds int32 letter offsets")
+        shapes = np.array([sweep_shape(int(x)) for x in q_lens],
+                          np.int64).reshape(-1, 2)
+        slot_bytes = 16 * max(len(b.t_cat), 1)
+        max_slots = max(1, self.SCRATCH_BYTES // slot_bytes)
+        per_group = max(1, MAX_SWEEP_PAIRS // max(len(tl), 1))
+        b.launches = []
+        live = np.flatnonzero(q_lens > 0)
+        for R in np.unique(shapes[live, 0]):
+            cls = live[shapes[live, 0] == R]
+            group, n_slots = [], 0
+            for qi in cls:
+                long_q = shapes[qi, 1] > 1
+                if group and (len(group) == per_group
+                              or (long_q and n_slots == max_slots)):
+                    b.launches.append(self._launch(b, int(R), group, shapes,
+                                                   q_off, q_lens, tl))
+                    group, n_slots = [], 0
+                group.append(int(qi))
+                n_slots += int(long_q)
+            if group:
+                b.launches.append(self._launch(b, int(R), group, shapes,
+                                               q_off, q_lens, tl))
+        return b
+
+    @staticmethod
+    def _launch(b, R, group, shapes, q_off, q_lens, tl) -> SweepLaunch:
+        L = SweepLaunch()
+        L.R = R
+        g = np.asarray(group, np.int64)
+        strips = shapes[g, 1]
+        slot = np.where(strips > 1, np.cumsum(strips > 1) - 1, -1)
+        L.slots = int((strips > 1).sum())
+        L.reqs = np.zeros((b.n_queries, SWEEP_REQ_COLS), np.int32)
+        L.reqs[:, 2] = -1
+        L.reqs[g, 0], L.reqs[g, 1], L.reqs[g, 2] = q_off[g], q_lens[g], slot
+        qq = np.repeat(g, len(tl))
+        tt = np.tile(np.arange(len(tl), dtype=np.int64), len(g))
+        work = shapes[qq, 1] * tl[tt]
+        order = np.argsort(-work, kind="stable")
+        L.pairs = np.stack([qq[order], tt[order]], axis=1).astype(np.int32)
+        L.cells = int((q_lens[qq] * tl[tt]).sum())
+        L.walk_cells = int((work * 32 * R).sum())
+        return L
+
+    def run_block(self, queries, tblock, t_order):
+        """Scores [len(queries), len(t_order)] int32 (all target lengths in
+        (0, MAX_LEN], query lengths <= MAX_ROW_LEN)."""
+        return self.dispatch_block(queries, tblock, t_order).wait()
+
+    def dispatch_block(self, queries, tblock, t_order, kernel=None):
+        """Async variant of run_block: every launch of ``kernel``
+        (``full_swipe`` unless given) is queued before it returns, so host
+        work (the long-sequence tail, result formatting) overlaps the
+        card's; .wait() on the returned handle is the only blocking step."""
+        global dispatch_count, dispatch_cells, dispatch_wait_s
+        kernel = kernel or full_swipe
+        t0 = time.perf_counter()
+        b = self.pack(queries, tblock, t_order)
+        dev = self.device
+        # every copy to the card before the first launch: a pageable copy
+        # waits for the stream, so a copy after a launch would wait for it
+        x = {k: torch.from_numpy(getattr(b, k)).to(dev)
+             for k in ("t_cat", "targets", "q_cat", "bias_cat")}
+        per = [(L, torch.from_numpy(L.reqs).to(dev),
+                torch.from_numpy(L.pairs).to(dev)) for L in b.launches]
+        out = torch.zeros((b.n_queries, b.n_targets), dtype=torch.int32,
+                          device=dev)
+        for L, reqs, pairs in per:
+            scratch = torch.empty((L.slots, 2, len(b.t_cat), 2),
+                                  dtype=torch.int32, device=dev)
+            kernel(x["t_cat"], x["targets"], x["q_cat"], x["bias_cat"],
+                   reqs, pairs, self._m32, self.go, self.ge, L.R, scratch,
+                   out)
+            dispatch_count += 1
+            dispatch_cells += L.walk_cells
+        dispatch_wait_s += time.perf_counter() - t0
+        return _SweepPending(out)
+
+
+class _SweepPending:
+    def __init__(self, out):
+        self._out = out
+
+    def wait(self):
+        global dispatch_wait_s
+        t0 = time.perf_counter()
+        res = self._out.cpu().numpy()  # the readback is the only blocking step
+        dispatch_wait_s += time.perf_counter() - t0
+        return res
+
+
+def from_pallas_full_sweep(bounds32, t_idx8, q_let8, q_bias8, q_valid8,
+                           Q: int, T: int, tile_b: int):
+    """A recorded full_swipe_pallas_sweep call's inputs (diamond_tpu:
+    bounds32 [G], t_idx8 [G*T, tile_b], q_let8 / q_bias8 / q_valid8 [NQ*Q])
+    as this kernel's inputs: target b of tile g walks the tile's bound
+    columns (pad letters included, as the TPU kernel does), query n is its
+    valid profile rows (a prefix), every (query, target) a pair.  The
+    outputs equal the TPU kernel's [NQ, G*tile_b] matrix.  Returns a dict of
+    numpy arrays (t_cat, targets, q_cat, bias_cat, reqs, pairs) and a list
+    of (rows per lane, pair rows) launches."""
+    bounds = np.asarray(bounds32).astype(np.int64)
+    G = len(bounds)
+    t = np.asarray(t_idx8).reshape(G, T, tile_b).transpose(0, 2, 1)
+    t_len = np.repeat(bounds, tile_b)
+    rows = np.arange(T)[None, :] < t_len.reshape(G, tile_b, 1)
+    t_cat = (t[rows] & 31).astype(np.int8)       # row-major: tile, lane, col
+    t_off = np.zeros(G * tile_b, np.int64)
+    np.cumsum(t_len[:-1], out=t_off[1:])
+    qv = np.asarray(q_valid8).reshape(-1, Q) != 0
+    NQ = qv.shape[0]
+    q_lens = qv.sum(axis=1)
+    if not (qv == (np.arange(Q)[None, :] < q_lens[:, None])).all():
+        raise ValueError("q_valid rows must be prefixes")
+    keep = np.arange(Q)[None, :] < q_lens[:, None]
+    q_cat = (np.asarray(q_let8).reshape(NQ, Q)[keep] & 31).astype(np.int8)
+    bias_cat = np.asarray(q_bias8).reshape(NQ, Q)[keep].astype(np.int8)
+    q_off = np.zeros(NQ, np.int64)
+    np.cumsum(q_lens[:-1], out=q_off[1:])
+    shapes = np.array([sweep_shape(int(x)) for x in q_lens], np.int64)
+    reqs = np.stack([q_off, q_lens, np.full(NQ, -1)], axis=1).astype(np.int32)
+    launches = []
+    for R in np.unique(shapes[:, 0]):
+        g = np.flatnonzero(shapes[:, 0] == R)
+        pairs = np.stack([np.repeat(g, G * tile_b),
+                          np.tile(np.arange(G * tile_b), len(g))], axis=1)
+        launches.append((int(R), pairs.astype(np.int32)))
+    return dict(t_cat=t_cat, targets=np.stack([t_off, t_len], axis=1).astype(
+        np.int32), q_cat=q_cat, bias_cat=bias_cat, reqs=reqs), launches

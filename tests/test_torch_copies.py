@@ -25,6 +25,12 @@ ALLOWED = {
     "search/pipeline.py": ("device route builds the port's DeviceDP; "
                            "--mesh and stage 1/2 on the card raise; "
                            "_can_fork reads no jax knob", 72),
+    "align/frameshift.py": ("_device_swipe3_scores calls the port's 3-frame "
+                            "kernel on the resolved device, with its own "
+                            "band cap", 51),
+    "align/swipe_all.py": ("_device_swipe_dispatch builds the port's "
+                           "FullSweep on the resolved device; --mesh raises",
+                           17),
 }
 # written for the port (no verbatim counterpart kept)
 REWRITTEN = {"cli.py", "ops/__init__.py", "ops/swipe_device.py",
@@ -53,6 +59,8 @@ def test_copy_set_is_complete():
     for rel in ALLOWED:
         assert rel in files, rel
     for must in ("native/__init__.py", "native/src/swipe_lanes.cc",
+                 "native/src/swipe3.cc", "data/translate.py",
+                 "search/blastx.py", "ops/swipe3.py",
                  "ops/banded_swipe.py", "output/sam.py", "output/xml.py",
                  "stats/matrix_adjust.py", "align/gapped_filter.py",
                  "masking/motifs_data.txt"):

@@ -1,12 +1,14 @@
 """The port's CUDA kernels on the card (``pytest -m gpu tests/test_torch_*.py``).
 
-The banded-SWIPE kernel against its plain PyTorch version on the same card
-tensors, and DeviceDP on the card against the native host DP; exact int32
-equality.  Skips without a card: a CUDA kernel has no CPU mode.
+The banded-SWIPE kernel (K1), the 3-frame kernel (K3) and the full-matrix
+sweep (K2) against their plain PyTorch versions on the same card tensors and
+against the host DP (native or numpy); exact int32 equality.  Skips without
+a card: a CUDA kernel has no CPU mode.
 """
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,3 +43,68 @@ def test_banded_swipe_kernel_matches_plain_on_gpu():
     for (q, bias, jobs), res in zip(reqs, dp.run_many(reqs)):
         assert res == banded_swipe_batch_np(q, bias, jobs, m.matrix32,
                                             m.gap_open, m.gap_extend)
+
+
+def _smoke():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    return chip_smoke
+
+
+@pytest.mark.gpu
+def test_swipe3_kernel_matches_plain_and_native_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch import native
+    from diamond_tpu_torch.ops import swipe3_device as s3
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    go, ge, fs = m.gap_open + m.gap_extend, m.gap_extend, 15
+    classes = set()
+    for strands, jobs in _smoke().swipe3_jobs(seed=12, n_queries=3):
+        launches = s3.banded_swipe3.launches
+        kb, kc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda")
+        assert s3.banded_swipe3.launches > launches
+        pb, pc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda",
+                                  kernel=s3.banded_swipe3_plain)
+        np.testing.assert_array_equal(kb, pb)
+        np.testing.assert_array_equal(kc, pc)
+        for k, (s, t, d0, d1) in enumerate(jobs):
+            classes.add(s3.offsets_per_lane(d1 - d0))
+            fwd = native.banded_3frame_forward_native(strands[s], t, d0, d1,
+                                                      m.matrix32, go, ge, fs)
+            want = (0, -1) if fwd is None or fwd[1] <= 0 else fwd[1:3]
+            assert (kb[k], kc[k]) == tuple(want), (k, d0, d1)
+    assert classes == set(s3.OFFSETS_PER_LANE)
+
+
+@pytest.mark.gpu
+def test_full_swipe_kernel_matches_plain_and_host_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    queries, targets = _smoke().sweep_inputs(seed=13)
+    tb = Block.from_sequences(targets, [f"t{i}" for i in range(len(targets))])
+    t_order = np.arange(len(targets))
+    sweep = sd.FullSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    launches = sd.full_swipe.launches
+    S = sweep.run_block(queries, tb, t_order)
+    n = len(sweep.pack(queries, tb, t_order).launches)
+    assert sd.full_swipe.launches == launches + n
+    P = sweep.dispatch_block(queries, tb, t_order,
+                             kernel=sd.full_swipe_plain).wait()
+    np.testing.assert_array_equal(S, P)
+    for r, (q, bias) in enumerate(queries):
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        assert S[r].tolist() == [x[0] for x in ref], r

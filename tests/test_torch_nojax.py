@@ -80,7 +80,7 @@ def test_cli_without_card_exits_with_message(tmp_path):
 
 def test_cli_names_roadmap_item_for_unported_options(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, DIAMOND_TPU_TORCH_DEVICE="cpu")
-    for extra in (["--swipe"], ["-b", "1"], ["-f", "100"], ["--mesh", "2"],
+    for extra in (["-g", "1"], ["-b", "1"], ["-f", "100"], ["--mesh", "2"],
                   ["--masking", "seg"], ["--iterate"]):
         r = subprocess.run([sys.executable, "-m", "diamond_tpu_torch.cli",
                             "blastp", "-q", Q2, "-d", Q2, *extra],
