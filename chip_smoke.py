@@ -2,19 +2,25 @@
 """Smoke run of the PyTorch/CUDA port (diamond_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--queries N] [--long-reads N] [--short-reads N]
-                          [--swipe-queries N] [--seed S]
+                          [--swipe-queries N] [--sweep-queries N] [--seed S]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
-     full_swipe.cu; one nvcc per source, all at once, for sm_90a; registers
-     and spills from ptxas) and the port's native host library;
+     full_swipe.cu, uniform_swipe.cu, stage2.cu; one nvcc per source, all at
+     once, for sm_90a; registers and spills from ptxas) and the port's
+     native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
      (K1) on requests in every band class; the 3-frame DP (K3) on jobs over
      both strands, frames of unequal length, d0 < 0, band 1, targets
      shorter than the band; the full-matrix sweep (K2) against the
-     full-band host DP, with and without bias, queries above one strip;
+     full-band host DP, with and without bias, queries above one strip; the
+     uniform-band DP (K4) on bands of 16 to 8192 rows, with and without
+     bias, d0 < 0, targets shorter than the band, also through the direct
+     DP route; the diagonal-band sweep (K5, SwipeSweep) against the
+     full-band host DP; the stage-2 filter (K6) at the benchmark's shape and
+     on pregathered pairs of a padded count, against a numpy oracle;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters);
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
@@ -25,7 +31,11 @@ Phases; each one fails the run on error:
      paths 4, 5 and 7 run once with the DP on the card and once with
      DIAMOND_TPU_TORCH_DEVICE_DP=0; the outputs must be identical and the
      path's kernel must have launched (counts set to 0 before each run);
-  8. timing: each kernel, its plain version and the bound on the largest
+  8. SwipeSweep: the first 4 proteins against the whole set through K5,
+     scores held against K2's FullSweep on the same pairs;
+  9. benchmark: ``diamond_tpu_torch.cli benchmark`` (its table printed);
+     K1, K3, K4 and K6 must have launched;
+ 10. timing: each kernel, its plain version and the bound on the largest
      batch of its path (CUDA events).
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
@@ -60,6 +70,13 @@ K3_NOTE = ("s-fs, diagonal+s, row r-1 + (s-fs), row r+1 + (s-fs), 5 max "
            "over those three, the vertical gap, the horizontal state and 0, "
            "H-go (shared), vertical gap-ge, max for it, horizontal state-ge, "
            "max for it, best max")
+# K4 and K5 share one recurrence; the bias is folded into their profile
+K45_OPS = 11
+K45_NOTE = ("H+s, max E, max 0, H-go (shared by E and F), F-ge, max for F, "
+            "max F into H, valid select, best max, E-ge, max for E")
+K6_OPS = 10
+K6_NOTE = ("matrix index, st+M, max 0, min 255, two window compares, window "
+           "select, best max, letter compare, identity add")
 
 
 def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
@@ -268,6 +285,98 @@ def sweep_inputs(seed: int):
     return queries, targets
 
 
+UNIFORM_BANDS = (16, 32, 100, 128, 512, 700, 1024, 3000, 5120, 8192)
+
+
+def uniform_batches(seed: int, bands=UNIFORM_BANDS):
+    """Seeded uniform-band (K4) batches, one query each, whose widest job
+    is each of ``bands`` rows: queries of about half the band (bias on every
+    other), jobs with d0 < 0, a planted stretch of the query on each job's
+    middle diagonal, a target shorter than the band and a job with no cell
+    in the query.  Returns [(query, bias, jobs)]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, band in enumerate(bands):
+        qlen = int(rng.integers(band // 2 + 20, band // 2 + 200))
+        q = rng.integers(0, 20, qlen).astype(np.int8)
+        bias = rng.integers(-4, 5, qlen).astype(np.int32) if k % 2 else None
+        jobs = []
+        for x in range(8):
+            width = band if x == 0 else int(rng.integers(1, band + 1))
+            tl = int(rng.integers(5, band // 4 + 65))
+            t = rng.integers(0, 20, tl).astype(np.int8)
+            d0 = int(rng.integers(-tl + 1, qlen // 4 + 1))
+            d = d0 + width // 2
+            j = np.arange(max(0, -d), min(tl, qlen - d))[:80]
+            t[j] = q[j + d]
+            jobs.append((t, d0, d0 + width))
+        jobs += [(t[:7], -3, band - 3), (t[:5], -50, -40)]
+        out.append((q, bias, jobs))
+    return out
+
+
+def sweep_case(seed: int, n_queries: int = 3, n_targets: int = 40):
+    """Seeded full-matrix case for the diagonal-band sweep (K5): queries of
+    20-300 letters (bias on every other), targets of 10-400, plus two short
+    targets of masked letters with no positive cell."""
+    rng = np.random.default_rng(seed)
+    queries = []
+    for r in range(n_queries):
+        qlen = int(rng.integers(20, 300))
+        q = rng.integers(0, 20, qlen).astype(np.int8)
+        bias = rng.integers(-4, 5, qlen).astype(np.int32) if r % 2 else None
+        queries.append((q, bias))
+    targets = [rng.integers(0, 20, int(rng.integers(10, 400))).astype(np.int8)
+               for _ in range(n_targets)]
+    return queries, targets + [np.full(3, 23, np.int8), np.full(1, 23, np.int8)]
+
+
+def stage2_pairs(seed: int, n: int):
+    """Seeded stage-2 candidate pairs: two letter streams with delimiters
+    (2 %) and 64-letter delimiter margins, seed positions, every third pair
+    locally identical, windows of 10-48 and cutoffs of 10-39.  Returns
+    (q_letters, s_letters, qp, sp, windows, cutoffs)."""
+    rng = np.random.default_rng(seed)
+
+    def letters(k):
+        core = rng.integers(0, 20, k).astype(np.int8)
+        core[rng.random(k) < 0.02] = 31
+        pad = np.full(64, 31, np.int8)
+        return np.concatenate([pad, core, pad])
+
+    q_letters, s_letters = letters(2000), letters(3000)
+    qp = rng.integers(64, 64 + 2000, n).astype(np.int64)
+    sp = rng.integers(64, 64 + 3000, n).astype(np.int64)
+    for k in range(0, n, 3):
+        lo, hi = max(0, qp[k] - 20), qp[k] + 36
+        s_letters[sp[k] - (qp[k] - lo): sp[k] + (hi - qp[k])] = \
+            q_letters[lo:hi]
+    windows = rng.integers(10, 49, n).astype(np.int32)
+    cutoffs = rng.integers(10, 40, n).astype(np.int32)
+    return q_letters, s_letters, qp, sp, windows, cutoffs
+
+
+def stage2_oracle(qw8, sw8, meta, m2, hamming_id: int, max_window: int):
+    """The stage-2 filter in numpy over pregathered windows (qw8, sw8 [W, N]
+    letters, meta [3, N] rows wl, wr, cutoff): the fingerprint identity
+    count over [-16, +32), the uint8-saturating Kadane walk inside [-wl, wr)
+    and keep.  Returns (keep, best, ident)."""
+    q = np.asarray(qw8, np.int64)
+    s = np.asarray(sw8, np.int64)
+    wl, wr, cut = np.asarray(meta, np.int64)
+    st = np.zeros(q.shape[1], np.int64)
+    best = np.zeros_like(st)
+    ident = np.zeros_like(st)
+    for w in range(q.shape[0]):
+        o = w - max_window
+        v = np.asarray(m2, np.int64)[q[w] & 31, s[w] & 31]
+        st = np.where((o >= -wl) & (o < wr), np.clip(st + v, 0, 255), 0)
+        best = np.maximum(best, st)
+        if -16 <= o < 32:
+            ident += q[w] == s[w]
+    return (ident >= hamming_id) & (best > cut), best, ident
+
+
 def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -329,6 +438,8 @@ def main(argv=None):
                     help="reads of the default blastx run")
     ap.add_argument("--swipe-queries", type=int, default=32,
                     help="queries of the blastp --swipe run")
+    ap.add_argument("--sweep-queries", type=int, default=4,
+                    help="queries of the SwipeSweep (K5) run")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -361,16 +472,22 @@ def main(argv=None):
     from diamond_tpu_torch import native
     from diamond_tpu_torch.cli import main as cli_main
     from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.align import extend as pext
+    from diamond_tpu_torch.benchmark import FULL as BENCH
+    from diamond_tpu_torch.constants.alphabet import encode
     from diamond_tpu_torch.ops import _cuda
+    from diamond_tpu_torch.ops import stage2_device as s2
     from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops import swipe_uniform_device as sud
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
     from diamond_tpu_torch.utils import log as plog
 
     # -- 2. build -----------------------------------------------------------
     phase("build")
-    kernels = ("banded_swipe", "swipe3", "full_swipe")
+    kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
+               "stage2")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -379,7 +496,7 @@ def main(argv=None):
         for line in _cuda.build_log.get(k, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {k}:", line.strip())
-    sd._k1(), s3._k3(), sd._k2()
+    sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -478,7 +595,113 @@ def main(argv=None):
     if k2_mis or k2_host_mis:
         raise RuntimeError("K2 disagrees with its references")
 
-    # -- 4-7. the paths, each on the card and with the DP on the host -------
+    def np_diff(name, got, want):
+        mis = int(sum((np.asarray(g) != np.asarray(w)).sum()
+                      for g, w in zip(got, want)))
+        err = max(int(np.abs(np.asarray(g, np.int64)
+                             - np.asarray(w, np.int64)).max())
+                  for g, w in zip(got, want))
+        max_err[name] = max(max_err.get(name, 0), err)
+        return mis
+
+    def uniform_best_effort(out, n):
+        best, mc, mr, meta = out
+        return [(int(best[k]), max(int(mc[k]) - meta["shifts"][k], 0),
+                 int(mr[k])) for k in range(n)]
+
+    # K4: the uniform-band DP of the benchmark and the direct DP route
+    k4_jobs = k4_mis = k4_host_mis = 0
+    k4_bands = []
+    for q, bias, jobs in uniform_batches(args.seed + 4):
+        kb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda")
+        pb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda",
+                                kernel=sud.banded_swipe_uniform_cuda_plain)
+        k4_mis += np_diff("k4", kb[:3], pb[:3])
+        ref = sud.host_as_uniform(banded_swipe_batch_np(
+            q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)
+        k4_host_mis += sum(a != b for a, b in zip(
+            uniform_best_effort(kb, len(jobs)), ref))
+        k4_host_mis += sum(a != b for a, b in zip(  # the direct DP route
+            pext._device_dp_scores(q, bias, jobs, m), ref))
+        k4_bands.append(kb[3]["band"])
+        k4_jobs += len(jobs)
+    print(f"K4 parity: {k4_jobs} jobs, bands {k4_bands}, kernel vs plain "
+          f"mismatches {k4_mis}, kernel vs host DP mismatches {k4_host_mis}")
+    if k4_mis or k4_host_mis:
+        raise RuntimeError("K4 disagrees with its references")
+
+    # K5: the diagonal-band full-matrix sweep (SwipeSweep)
+    cq5, ct5 = sweep_case(args.seed + 5)
+    ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    chunks5 = ss.chunks(ct5)
+    k5_mis = k5_launches = 0
+    for q, bias in cq5:
+        for ch, _band, bl, prof_t in ss.query_launches(q, bias, chunks5):
+            k5_mis += diff("k5", sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge),
+                           sd.swipe_sweep_plain(ch.t_idx, bl, prof_t, go, ge))
+            k5_launches += 1
+    cres5 = ss.run(cq5, ct5)
+    k5_host_mis = 0
+    for (q, bias), row in zip(cq5, cres5):
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in ct5],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        k5_host_mis += sum(a != tuple(b) for a, b in zip(row, ref))
+    print(f"K5 parity: {len(cq5)} queries (lengths "
+          f"{[len(q) for q, _ in cq5]}) x {len(ct5)} targets in "
+          f"{len(chunks5)} length classes, {k5_launches} launches, kernel vs "
+          f"plain mismatches {k5_mis}, SwipeSweep vs host DP (full band) "
+          f"mismatches {k5_host_mis}")
+    if k5_mis or k5_host_mis:
+        raise RuntimeError("K5 disagrees with its references")
+
+    # K6: the stage-2 filter, at the benchmark's shape and on pregathered
+    # pairs whose count is no multiple of a block
+    m2 = m32[:32, :32].contiguous()
+    m2_np = m2.cpu().numpy()
+    rng6 = np.random.default_rng(args.seed + 6)
+    n6, w6 = BENCH["N2"], 96
+    qw6 = rng6.integers(0, 20, (w6, n6)).astype(np.int8)
+    sw6 = rng6.integers(0, 20, (w6, n6)).astype(np.int8)
+    sw6[:, ::5] = qw6[:, ::5]  # some pairs pass the identity test
+    meta6 = np.stack([rng6.integers(0, 49, n6), rng6.integers(0, 49, n6),
+                      rng6.integers(0, 60, n6)]).astype(np.int32)
+    x6 = [torch.from_numpy(a).cuda() for a in (qw6, sw6, meta6)]
+    got6 = s2.stage2_filter(*x6, m2, 26, w6 // 2)
+    k6_mis = diff("k6", got6, s2.stage2_filter_plain(*x6, m2, 26, w6 // 2))
+    k6_host_mis = np_diff("k6", [g.cpu().numpy() for g in got6],
+                          stage2_oracle(qw6, sw6, meta6, m2_np, 26, w6 // 2))
+    pairs6 = stage2_pairs(args.seed + 7, 700)
+    max_window = int(pairs6[4].max())
+    keep_k, best_k = s2.stage2_pregathered(*pairs6, m.matrix32, 26, max_window,
+                                           device="cuda")
+    keep_p, best_p = s2.stage2_pregathered(
+        *pairs6, m.matrix32, 26, max_window, device="cuda",
+        kernel=s2.stage2_filter_plain)
+    k6_mis += np_diff("k6", [keep_k, best_k], [keep_p, best_p])
+    qw, sw, wl, wr = s2.pregather_windows(*pairs6[:5], max_window)
+    keep_o, best_o, _ = stage2_oracle(qw, sw, np.stack([wl, wr, pairs6[5]]),
+                                      m2_np, 26, max_window)
+    k6_host_mis += np_diff("k6", [keep_k, best_k], [keep_o, best_o])
+    print(f"K6 parity: {n6} pairs x {w6} window letters ({int(got6[0].sum())} "
+          f"kept) and {len(pairs6[2])} pregathered pairs (max_window "
+          f"{max_window}, {int(keep_k.sum())} kept), kernel vs plain mismatches "
+          f"{k6_mis}, kernel vs numpy oracle mismatches {k6_host_mis}")
+    if k6_mis or k6_host_mis:
+        raise RuntimeError("K6 disagrees with its references")
+
+    # -- 4-9. the paths, each with every launch count set to 0 just before --
+    wrappers = dict(k1=sd.banded_swipe_multi, k3=s3.banded_swipe3,
+                    k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
+                    k5=sd.swipe_sweep, k6=s2.stage2_filter)
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def launch_counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
     events = []           # CUDA events around every kernel launch of a run
     captured = {}         # the largest batch of each kernel, for timing
 
@@ -520,9 +743,7 @@ def main(argv=None):
             os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
         sd.reset_dispatch_stats()
         s3.dispatch_count = 0
-        sd.banded_swipe_multi.launches = 0
-        s3.banded_swipe3.launches = 0
-        sd.full_swipe.launches = 0
+        zero_counts()
         plog.prof_calls.clear()
         plog.prof.clear()
         events.clear()
@@ -545,9 +766,7 @@ def main(argv=None):
         res = dict(
             wall_s=wall, lines=len(data.decode().splitlines()),
             sha=hashlib.sha256(data).hexdigest()[:16],
-            launches=dict(k1=sd.banded_swipe_multi.launches,
-                          k3=s3.banded_swipe3.launches,
-                          k2=sd.full_swipe.launches),
+            launches=launch_counts(),
             device_busy_s=busy, idle_share=1 - busy / wall,
             device_jobs=plog.prof_calls.get("ext.device_jobs", 0),
             device_cells=plog.prof_calls.get("ext.device_cells", 0),
@@ -559,6 +778,7 @@ def main(argv=None):
         print(f"{route} host phases (s): "
               + json.dumps({k: round(v, 3) for k, v in phases}))
         return res, data
+
 
     def report(route, res, n, what):
         print(f"{route}: {res['lines']} lines, sha {res['sha']}, "
@@ -655,6 +875,52 @@ def main(argv=None):
                                     "-f", "6"], n_sw, "queries", "k2")
         paths["k2"] = out["card"][0]
 
+    phase("SwipeSweep (diagonal-band full-matrix sweep, K5)")
+    letters = [encode(s) for _, s in recs]
+    queries5 = [(q, None) for q in letters[:args.sweep_queries]]
+    cells = sum(len(q) for q, _ in queries5) * n_letters
+    ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    sd.reset_dispatch_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res5 = ss.run(queries5, letters)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    paths["k5"] = dict(launches=counts)
+    if counts["k5"] == 0 or counts["k5"] != sd.dispatch_count:
+        raise RuntimeError(f"SwipeSweep launched K5 {counts['k5']} times "
+                           f"for {sd.dispatch_count} dispatches")
+    tb = Block.from_sequences(letters, [i for i, _ in recs])
+    S = sd.FullSweep(m.matrix32, m.gap_open, m.gap_extend,
+                     device="cuda").run_block(queries5, tb,
+                                              np.arange(len(letters)))
+    k5_full_mis = int((np.array([[r[0] for r in row] for row in res5])
+                       != S).sum())
+    chunks5 = ss.chunks(letters)
+    print(f"SwipeSweep: {len(queries5)} queries x {len(letters)} targets, "
+          f"{cells} cells (q_len x t_len), {counts['k5']} K5 launches over "
+          f"{len(chunks5)} length classes, {wall:.2f} s on {kind} "
+          f"({name_power}); scores vs FullSweep (K2) mismatches "
+          f"{k5_full_mis}; launches {counts}")
+    if k5_full_mis:
+        raise RuntimeError("SwipeSweep (K5) and FullSweep (K2) disagree")
+
+    phase("benchmark (diamond_tpu_torch.cli benchmark)")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["benchmark"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    paths["bench"] = dict(launches=counts)
+    print(f"benchmark: {wall:.2f} s on {kind} ({name_power}); kernel "
+          f"launches {counts}")
+    if rc:
+        raise RuntimeError(f"benchmark exited {rc}")
+    missing = [k for k in ("k1", "k3", "k4", "k6") if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"the benchmark never launched {missing}")
+
     # -- 8. timing ----------------------------------------------------------
     phase("kernel timing at main-path shapes")
     rows = []
@@ -745,13 +1011,75 @@ def main(argv=None):
         lambda: k2_call(sd.full_swipe_plain), L.cells, K2_OPS, K2_NOTE,
         n_bytes, 3)))
 
+    # K4 on the benchmark's first row (benchmark.py's seed and sizes)
+    rng4 = np.random.default_rng(0)
+    q4 = rng4.integers(0, 20, BENCH["qlen"]).astype(np.int8)
+    band4 = BENCH["band"]
+    jobs4 = [(rng4.integers(0, 20, BENCH["T"]).astype(np.int8), -band4 // 2,
+              band4 // 2) for _ in range(BENCH["B"])]
+    pk4, _ = sud.pack_uniform_batch(q4, None, m.matrix32, jobs4)
+    x4 = {k: torch.from_numpy(v).cuda() for k, v in pk4.items()}
+    cells = int(band_cells(np.array([len(t) for t, _, _ in jobs4]),
+                           np.full(len(jobs4), len(q4)),
+                           np.array([d0 for _, d0, _ in jobs4]),
+                           np.array([d1 - d0 for _, d0, d1 in jobs4])).sum())
+    n_bytes = sum(v.nbytes for v in pk4.values()) + 3 * 4 * len(jobs4)
+    print(f"K4 batch: {len(jobs4)} targets of {BENCH['T']} x query of "
+          f"{len(q4)}, band {band4} (the benchmark's first row)")
+    rows.append(("k4", time_kernel(
+        "k4", lambda: sud.banded_swipe_uniform_cuda(
+            x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
+        lambda: sud.banded_swipe_uniform_cuda_plain(
+            x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
+        cells, K45_OPS, K45_NOTE, n_bytes, 20)))
+
+    # K5 on the largest launch of the SwipeSweep run
+    launches5 = [(len(q), L) for q, _ in queries5
+                 for L in ss.query_launches(q, None, chunks5)]
+    qlen5, (ch, band5, bl5, prof5) = max(
+        launches5, key=lambda x: len(x[1][0].rows) * x[1][0].T * x[1][1])
+    cells = qlen5 * int(ch.tl.sum())
+    n_bytes = (ch.t_idx.numel() + 4 * bl5.numel() + 4 * prof5.numel()
+               + 3 * 4 * len(ch.rows))
+    print(f"K5 batch: {len(ch.rows)} targets of up to {ch.T} letters x query "
+          f"of {qlen5}, band {band5} ({len(ch.rows) * ch.T * band5} band "
+          f"cells walked for {cells} matrix cells), of {len(launches5)} "
+          f"launches")
+    rows.append(("k5", time_kernel(
+        "k5", lambda: sd.swipe_sweep(ch.t_idx, bl5, prof5, go, ge),
+        lambda: sd.swipe_sweep_plain(ch.t_idx, bl5, prof5, go, ge),
+        cells, K45_OPS, K45_NOTE, n_bytes, 3)))
+
+    # K6 at the benchmark's stage-2 row: 131,072 pairs x 96 window letters
+    meta6 = np.zeros((3, n6), np.int32)
+    meta6[0], meta6[1], meta6[2] = 40, 40, 20
+    x6[2] = torch.from_numpy(meta6).cuda()
+    n_bytes = 2 * w6 * n6 + 4 * meta6.size + 4 * 32 * 32 + (1 + 4 + 4) * n6
+    print(f"K6 batch: {n6} pairs x {w6} window letters (the benchmark's row)")
+    rows.append(("k6", time_kernel(
+        "k6", lambda: s2.stage2_filter(*x6, m2, 26, w6 // 2),
+        lambda: s2.stage2_filter_plain(*x6, m2, 26, w6 // 2),
+        n6 * w6, K6_OPS, K6_NOTE, n_bytes, 20)))
+
+    uniform_src = "diamond_tpu_torch/csrc/uniform_swipe.cu"
     meta = {
         "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
-               "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)"),
+               "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)",
+               "k1"),
         "k3": ("banded_swipe3", "diamond_tpu_torch/csrc/swipe3.cu",
-               "diamond_tpu/ops/swipe3_pallas.py:123 (banded_swipe3_pallas)"),
+               "diamond_tpu/ops/swipe3_pallas.py:123 (banded_swipe3_pallas)",
+               "k3"),
         "k2": ("full_swipe", "diamond_tpu_torch/csrc/full_swipe.cu",
-               "diamond_tpu/ops/swipe_device.py:789 (full_swipe_pallas_sweep)"),
+               "diamond_tpu/ops/swipe_device.py:789 (full_swipe_pallas_sweep)",
+               "k2"),
+        "k4": ("banded_swipe_uniform_cuda", uniform_src,
+               "diamond_tpu/ops/swipe_pallas.py:114 (banded_swipe_pallas)",
+               "bench"),
+        "k5": ("swipe_sweep", uniform_src,
+               "diamond_tpu/ops/swipe_device.py:582 (banded_swipe_pallas_sweep)",
+               "k5"),
+        "k6": ("stage2_filter", "diamond_tpu_torch/csrc/stage2.cu",
+               "diamond_tpu/ops/stage2_pallas.py:85 (stage2_pallas)", "bench"),
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -759,7 +1087,7 @@ def main(argv=None):
         "route": "cuda",
         "source": meta[k][1],
         "replaces": meta[k][2],
-        "launches": paths[k]["launches"][k],
+        "launches": paths[meta[k][3]]["launches"][k],
         "max_abs_err": max_err[k],
         "ms": ms,
         "plain_ms": plain_ms,

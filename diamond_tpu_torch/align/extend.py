@@ -464,13 +464,25 @@ def _device_dp_min_batch() -> int:
 
 
 def _device_dp_scores(q, use_bias, jobs, mat):
-    """Score-only banded DP of one query's batch on the card: the direct
-    driver's kernel (diamond_tpu/ops/swipe_pallas.py banded_swipe_pallas,
-    K4) is not ported yet; ROADMAP.md section 1, item 8."""
-    raise NotImplementedError(
-        "the direct DP driver (DIAMOND_TPU_TORCH_DEVICE_DP set to a batch "
-        "size) needs kernel K4, which is not ported yet: ROADMAP.md "
-        "section 1, item 8")
+    """Score-only banded DP on the accelerator (uniform-band kernel; exact
+    int32 parity with the numpy oracle — see
+    tests/test_torch_swipe_uniform.py); bands past its cap take the host DP.
+    max_col/max_row are mapped best-effort; only the score feeds culling."""
+    from diamond_tpu_torch.ops import swipe_uniform
+    from diamond_tpu_torch.ops.swipe_uniform_device import (host_as_uniform,
+                                                            uniform_scores)
+    from diamond_tpu_torch.utils.device import resolve_device
+
+    if (swipe_uniform.pad_band(max(d1 - d0 for _, d0, d1 in jobs))
+            > swipe_uniform.MAX_UNIFORM_BAND):
+        return host_as_uniform(banded_swipe_batch_np(
+            q, use_bias, jobs, mat.matrix32, mat.gap_open, mat.gap_extend),
+            jobs)
+    go, ge = mat.gap_open + mat.gap_extend, mat.gap_extend
+    best, mc, mr, meta = uniform_scores(q, use_bias, mat.matrix32, jobs, go,
+                                        ge, resolve_device())
+    return [(int(best[k]), max(int(mc[k]) - meta["shifts"][k], 0), int(mr[k]))
+            for k in range(len(jobs))]
 
 
 def _run_dp_jobs(q, use_bias, jobs, job_meta, tgt_matrices, mat, traceback):

@@ -633,6 +633,10 @@ def _dispatch(args):
         cmd_blastp(args)
     elif args.command == "blastx":
         cmd_blastx(args)
+    elif args.command == "benchmark":
+        from diamond_tpu_torch.benchmark import run_benchmark
+
+        run_benchmark(device=_device("benchmark"))
     elif args.command is None:
         build_parser().print_help()
         return 1

@@ -80,6 +80,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_tensors(dev, *named):
+    """Each (name, tensor, dtype) lies on ``dev``, has that dtype and is
+    contiguous; raises otherwise (the kernels take raw pointers)."""
+    for name, x, dt in named:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, not {dev}")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def launcher(name: str, symbol: str, args: str):
     """The C entry point ``symbol`` of ``csrc/<name>.cu`` returning a CUDA
     error code, its arguments typed by ``args``: one letter per argument,

@@ -15,6 +15,13 @@ tensor ops and is what the wrapper runs for tensors on the CPU.
 ``diamond_tpu/ops/swipe_device.py:full_swipe_pallas_sweep``; its plain
 version is ``full_swipe_plain``.
 
+``SwipeSweep.run`` scores every (query, target) pair as one diagonal band
+per pair over length classes of targets kept on the card, with
+``swipe_sweep``: the per-row-length entry point of the uniform-band kernel
+(CUDA C++ in ``csrc/uniform_swipe.cu``), which replaces the TPU kernel
+``diamond_tpu/ops/swipe_device.py:banded_swipe_pallas_sweep``; its plain
+version is ``swipe_sweep_plain``.
+
 The batches are flat and ragged: concatenated int8 target letters with
 per-job (or per-target) offset and length, concatenated int8 query letters
 and bias with per-request offsets.  Scores are exact int32, so the output
@@ -28,6 +35,11 @@ import time
 import numpy as np
 import torch
 
+from diamond_tpu_torch.ops import swipe_uniform_device
+from diamond_tpu_torch.ops._cuda import check_tensors
+from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND, pad_band,
+                                                 pad_pow2, uniform_walk)
 from diamond_tpu_torch.utils.device import resolve_device
 from diamond_tpu_torch.utils.log import pcount
 
@@ -48,20 +60,6 @@ def reset_dispatch_stats():
     dispatch_count = 0
     dispatch_cells = 0
     dispatch_wait_s = 0.0
-
-
-def pad_pow2(x: int, lo: int = 16) -> int:
-    n = lo
-    while n < x:
-        n *= 2
-    return n
-
-
-def pad_band(x: int) -> int:
-    """Band padding: pow2 up to 1024, then multiples of 1024."""
-    if x <= 1024:
-        return pad_pow2(x, 16)
-    return (x + 1023) // 1024 * 1024
 
 
 def rows_per_lane(band: int) -> int:
@@ -85,18 +83,6 @@ def job_fits_device(tgt_len: int, d0: int, d1: int) -> bool:
 # ---------------------------------------------------------------------------
 # The kernel's wrapper and its plain version
 # ---------------------------------------------------------------------------
-
-def check_tensors(dev, *named):
-    """Each (name, tensor, dtype) lies on ``dev``, has that dtype and is
-    contiguous; raises otherwise (the kernels take raw pointers)."""
-    for name, x, dt in named:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, t_cat on {dev}")
-        if x.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
 
 def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
     i8, i32 = torch.int8, torch.int32
@@ -769,3 +755,212 @@ def from_pallas_full_sweep(bounds32, t_idx8, q_let8, q_bias8, q_valid8,
         launches.append((int(R), pairs.astype(np.int32)))
     return dict(t_cat=t_cat, targets=np.stack([t_off, t_len], axis=1).astype(
         np.int32), q_cat=q_cat, bias_cat=bias_cat, reqs=reqs), launches
+
+
+# ---------------------------------------------------------------------------
+# The diagonal-band sweep: every query against length classes of targets
+# kept on the card, one uniform band per class
+# ---------------------------------------------------------------------------
+
+def _k5():
+    return swipe_uniform_device._launcher("uniform_swipe_len_launch")
+
+
+def swipe_sweep(t_idx, band_len, prof_t, go: int, ge: int):
+    """Full-band SW of one query profile against B target rows: the uniform-
+    band kernel with each row's band given by its length.
+
+    t_idx int8 [B, T] shifted target letters, band_len int32 [B] (band row r
+    of target b is valid iff r < band_len[b]; qlen + tlen - 1 covers every
+    diagonal, 0 a dead row), prof_t int32 [32, T + band] (row r of column j
+    scores prof_t[letter][j + r], NEG out of the query); go = gap open +
+    extend, ge = gap extend.  Returns int32 [B] (best, max_col, max_row) in
+    shifted coordinates, with the tie rules of ``banded_swipe_uniform_cuda``.
+
+    CUDA tensors launch the kernel (counted in ``swipe_sweep.launches``); CPU
+    tensors run ``swipe_sweep_plain``."""
+    _, _, band = swipe_uniform_device.check_uniform(
+        t_idx, band_len, prof_t, torch.int32, "band_len")
+    if band_len.dim() != 1:
+        raise ValueError("band_len must be [B]")
+    dev = t_idx.device
+    if dev.type == "cpu":
+        return swipe_sweep_plain(t_idx, band_len, prof_t, go, ge)
+    if dev.type != "cuda":
+        raise ValueError(f"swipe_sweep runs on cuda or cpu, not {dev}")
+    out = swipe_uniform_device.launch_uniform(
+        "uniform_swipe_len_launch", t_idx, band_len, prof_t, band, go, ge)
+    if t_idx.numel():
+        swipe_sweep.launches += 1
+    return out
+
+
+swipe_sweep.launches = 0
+
+
+def swipe_sweep_plain(t_idx, band_len, prof_t, go: int, ge: int):
+    """The kernel's function in tensor ops (``swipe_uniform.uniform_walk``);
+    exact int32, on whatever device the inputs are on."""
+    band = prof_t.shape[1] - t_idx.shape[1]
+    r = torch.arange(band, device=t_idx.device)
+    return uniform_walk(t_idx, r[None, :] < band_len[:, None], prof_t, go, ge)
+
+
+def sweep_profile(q_let, q_bias, q_valid, matrix32):
+    """The transposed profile [32, T + band] int32 of one query's profile rows
+    (int8 [T + band] letters, bias, validity), built outside the kernel as
+    diamond_tpu builds it: matrix32[letter] + bias on valid rows, NEG
+    elsewhere."""
+    prof = matrix32[q_let.long() & 31] + q_bias.to(torch.int32)[:, None]
+    prof = torch.where(q_valid[:, None] != 0, prof, NEG)
+    return prof.T.contiguous()
+
+
+class SweepChunk:
+    """One length class of a SwipeSweep's targets on the card: ``t_idx``
+    int8 [rows, T] with target x right-aligned at column C - (tlen - 1) (C =
+    longest length - 1), ``rows`` its target ids, ``tl`` their lengths."""
+
+    __slots__ = ("T", "C", "t_idx", "rows", "tl")
+
+
+class SwipeSweep:
+    """Diagonal-band full-matrix SWIPE: every (query, target) pair's whole
+    matrix as one band of qlen + tlen - 1 diagonals (the counterpart of
+    diamond_tpu's SwipeSweep).
+
+    The targets are sorted by length and cut into length classes
+    (``pad_band`` of the length), each class's letter block goes to the card
+    once, and every query then sweeps the resident classes with one launch of
+    ``swipe_sweep`` each, the band qlen + C of the class.  Classes whose band
+    would pass ``MAX_UNIFORM_BAND`` take the host DP for that query.
+    ``run`` returns res[nq][nt] = (score, subject_pos, query_pos) of the best
+    cell, with the host DP's (0, 0, 0) for a score of 0.
+    """
+
+    def __init__(self, matrix32, gap_open: int, gap_extend: int,
+                 device: str | None = None):
+        self.device = torch.device(resolve_device(device))
+        self.matrix32 = np.ascontiguousarray(matrix32, dtype=np.int32)
+        self._m32 = torch.from_numpy(self.matrix32).to(self.device)
+        self.gap_open, self.gap_extend = gap_open, gap_extend
+        self.go = gap_open + gap_extend
+        self.ge = gap_extend
+
+    def chunks(self, targets):
+        """The targets' length classes, letter blocks on the card."""
+        tl_all = np.fromiter((len(t) for t in targets), np.int64, len(targets))
+        order = np.argsort(tl_all, kind="stable")
+        cls = np.array([pad_band(max(int(n), 1)) for n in tl_all[order]],
+                       np.int64)
+        out = []
+        for c in np.unique(cls):
+            rows = order[cls == c]
+            ch = SweepChunk()
+            ch.rows, ch.tl = rows, tl_all[rows]
+            ch.T = int(ch.tl.max())
+            ch.C = ch.T - 1
+            t_idx = np.full((len(rows), ch.T), 31, dtype=np.int8)
+            for x, t in enumerate(rows):
+                s = ch.C - (int(ch.tl[x]) - 1)
+                t_idx[x, s: s + int(ch.tl[x])] = \
+                    np.asarray(targets[t], dtype=np.int8) & 31
+            ch.t_idx = torch.from_numpy(t_idx).to(self.device)
+            out.append(ch)
+        return out
+
+    def query_launches(self, query, bias, chunks):
+        """(chunk, band, band_len, prof_t) of each launch of one query; a
+        chunk whose band would pass MAX_UNIFORM_BAND is left out."""
+        qlen = len(query)
+        q8 = torch.from_numpy(np.asarray(query, dtype=np.int8) & 31)
+        b8 = (torch.from_numpy(np.asarray(bias, dtype=np.int8))
+              if bias is not None else torch.zeros(qlen, dtype=torch.int8))
+        out = []
+        for ch in chunks:
+            band = qlen + ch.C
+            if not 1 <= band <= MAX_UNIFORM_BAND:
+                continue
+            T_pb = ch.T + band
+            q_let = torch.zeros(T_pb, dtype=torch.int8)
+            q_bias = torch.zeros(T_pb, dtype=torch.int8)
+            q_valid = torch.zeros(T_pb, dtype=torch.int8)
+            q_let[ch.C: ch.C + qlen] = q8
+            q_bias[ch.C: ch.C + qlen] = b8
+            q_valid[ch.C: ch.C + qlen] = 1
+            dev = self.device
+            prof_t = sweep_profile(q_let.to(dev), q_bias.to(dev),
+                                   q_valid.to(dev), self._m32)
+            bl = torch.from_numpy((qlen + ch.tl - 1).astype(np.int32)).to(dev)
+            out.append((ch, band, bl, prof_t))
+        return out
+
+    def run(self, queries, targets, kernel=None):
+        """queries: [(q_letters, bias_or_None)]; targets: [t_letters].
+        Every launch of ``kernel`` (``swipe_sweep`` unless given) is queued
+        before the first result is read back."""
+        global dispatch_count, dispatch_cells, dispatch_wait_s
+        kernel = kernel or swipe_sweep
+        chunks = self.chunks(targets)
+        res = [[None] * len(targets) for _ in queries]
+        pending = []
+        for qi, (q, bias) in enumerate(queries):
+            if bias is not None:
+                bias = np.asarray(bias)
+                if len(bias) and (bias.min() < -128 or bias.max() > 127):
+                    raise ValueError("query bias outside int8")
+            done = set()
+            for ch, band, bl, prof_t in self.query_launches(q, bias, chunks):
+                pending.append((qi, ch, kernel(ch.t_idx, bl, prof_t, self.go,
+                                               self.ge)))
+                dispatch_count += 1
+                dispatch_cells += len(ch.rows) * ch.T * band
+                done.add(id(ch))
+            for ch in chunks:  # bands past the kernel's cap: host DP
+                if id(ch) in done:
+                    continue
+                jobs = [(targets[t], -(len(targets[t]) - 1), len(q))
+                        for t in ch.rows]
+                for t, r in zip(ch.rows, banded_swipe_batch_np(
+                        q, bias, jobs, self.matrix32, self.gap_open,
+                        self.gap_extend)):
+                    res[qi][t] = r
+        t0 = time.perf_counter()
+        for qi, ch, out in pending:
+            best, mc, mr = torch.stack(out).cpu().numpy().astype(np.int64)
+            for x, t in enumerate(ch.rows):
+                tl = int(ch.tl[x])
+                if best[x] <= 0:  # the host DP's full-band convention
+                    res[qi][t] = (0, 0, 0)
+                    continue
+                j_true = int(mc[x]) - (ch.C - (tl - 1))
+                res[qi][t] = (int(best[x]), j_true, j_true - (tl - 1)
+                              + int(mr[x]))
+        dispatch_wait_s += time.perf_counter() - t0
+        return res
+
+
+def from_pallas_sweep_batch(t_idx8, band_len32, q_let8, q_bias8, q_valid8,
+                            T: int, band: int, tile_b: int):
+    """A banded_swipe_pallas_sweep call's inputs (diamond_tpu: t_idx8
+    [G*T, tile_b] int8, band_len32 [G, 8, tile_b] int32 with the lengths in
+    plane 0, q_let8 / q_bias8 / q_valid8 [T + band] int8) as this kernel's:
+    dict(t_idx int8 [G*tile_b, T], band_len int32 [G*tile_b], q_let, q_bias,
+    q_valid int8 [T + band]) (``sweep_profile`` builds prof_t from the last
+    three).  Row b of tile g walks all T columns, as the TPU kernel does, so
+    the outputs equal its rows."""
+    t = np.asarray(t_idx8)
+    G = t.shape[0] // T
+    if t.shape != (G * T, tile_b):
+        raise ValueError("t_idx8 must be [G*T, tile_b]")
+    q = [np.asarray(a).astype(np.int8).reshape(-1)
+         for a in (q_let8, q_bias8, q_valid8)]
+    if any(len(a) != T + band for a in q):
+        raise ValueError("query profile rows must be [T + band]")
+    return dict(
+        t_idx=np.ascontiguousarray(
+            t.reshape(G, T, tile_b).transpose(0, 2, 1).reshape(G * tile_b, T)
+            & 31).astype(np.int8),
+        band_len=np.ascontiguousarray(
+            np.asarray(band_len32)[:, 0, :].reshape(-1)).astype(np.int32),
+        q_let=q[0], q_bias=q[1], q_valid=q[2])

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (``pytest -m gpu tests/test_torch_*.py``).
 
-The banded-SWIPE kernel (K1), the 3-frame kernel (K3) and the full-matrix
-sweep (K2) against their plain PyTorch versions on the same card tensors and
-against the host DP (native or numpy); exact int32 equality.  Skips without
-a card: a CUDA kernel has no CPU mode.
+The banded-SWIPE kernel (K1), the 3-frame kernel (K3), the full-matrix
+sweep (K2), the uniform-band kernel (K4), the diagonal-band sweep (K5) and
+the stage-2 filter (K6) against their plain PyTorch versions on the same card
+tensors and against the host DP or a numpy oracle; exact integer equality.
+Skips without a card: a CUDA kernel has no CPU mode.
 """
 import os
 import sys
@@ -108,3 +109,83 @@ def test_full_swipe_kernel_matches_plain_and_host_on_gpu():
                                               for t in targets],
                                     m.matrix32, m.gap_open, m.gap_extend)
         assert S[r].tolist() == [x[0] for x in ref], r
+
+
+@pytest.mark.gpu
+def test_uniform_swipe_kernel_matches_plain_and_host_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    bands = []
+    for q, bias, jobs in _smoke().uniform_batches(seed=14):
+        launches = sud.banded_swipe_uniform_cuda.launches
+        kb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda")
+        assert sud.banded_swipe_uniform_cuda.launches == launches + 1
+        pb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda",
+                                kernel=sud.banded_swipe_uniform_cuda_plain)
+        for g, w in zip(kb[:3], pb[:3]):
+            np.testing.assert_array_equal(g, w)
+        ref = sud.host_as_uniform(banded_swipe_batch_np(
+            q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)
+        got = [(int(kb[0][k]), max(int(kb[1][k]) - kb[3]["shifts"][k], 0),
+                int(kb[2][k])) for k in range(len(jobs))]
+        assert got == ref
+        bands.append(kb[3]["band"])
+    assert max(bands) == 8192
+
+
+@pytest.mark.gpu
+def test_swipe_sweep_kernel_matches_plain_and_host_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    queries, targets = _smoke().sweep_case(seed=15)
+    sweep = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    launches = sd.swipe_sweep.launches
+    res = sweep.run(queries, targets)
+    assert sd.swipe_sweep.launches == (launches + len(queries)
+                                       * len(sweep.chunks(targets)))
+    assert sweep.run(queries, targets, kernel=sd.swipe_sweep_plain) == res
+    for (q, bias), row in zip(queries, res):
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        assert row == [tuple(r) for r in ref]
+
+
+@pytest.mark.gpu
+def test_stage2_kernel_matches_plain_and_oracle_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import stage2_device as s2
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    smoke = _smoke()
+    pairs = smoke.stage2_pairs(seed=16, n=1000)
+    max_window = int(pairs[4].max())
+    launches = s2.stage2_filter.launches
+    keep, best = s2.stage2_pregathered(*pairs, m.matrix32, 26, max_window,
+                                       device="cuda")
+    assert s2.stage2_filter.launches == launches + 1
+    keep_p, best_p = s2.stage2_pregathered(*pairs, m.matrix32, 26, max_window,
+                                           device="cuda",
+                                           kernel=s2.stage2_filter_plain)
+    np.testing.assert_array_equal(keep, keep_p)
+    np.testing.assert_array_equal(best, best_p)
+    qw, sw, wl, wr = s2.pregather_windows(*pairs[:5], max_window)
+    keep_o, best_o, _ = smoke.stage2_oracle(
+        qw, sw, np.stack([wl, wr, pairs[5]]), m.matrix32[:32, :32], 26,
+        max_window)
+    np.testing.assert_array_equal(keep, keep_o)
+    np.testing.assert_array_equal(best, best_o)
+    assert keep.any() and not keep.all()
