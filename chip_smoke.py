@@ -7,19 +7,22 @@
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
-     full_swipe.cu, uniform_swipe.cu, stage2.cu; one nvcc per source, all at
-     once, for sm_90a; registers and spills from ptxas) and the port's
-     native host library;
+     full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu; one nvcc
+     per source, all at once, for sm_90a; registers and spills from ptxas)
+     and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
      (K1) on requests in every band class; the 3-frame DP (K3) on jobs over
      both strands, frames of unequal length, d0 < 0, band 1, targets
-     shorter than the band; the full-matrix sweep (K2) against the
+     shorter than the band, read by read and all reads in one batch; the
+     full-matrix sweep (K2) against the
      full-band host DP, with and without bias, queries above one strip; the
      uniform-band DP (K4) on bands of 16 to 8192 rows, with and without
      bias, d0 < 0, targets shorter than the band, also through the direct
      DP route; the diagonal-band sweep (K5, SwipeSweep) against the
-     full-band host DP; the stage-2 filter (K6) at the benchmark's shape and
+     full-band host DP, with queries above one strip, positive biases, tied
+     bests and score-0 rows, and on a profile whose pad cells score (and a
+     dead row) against its plain version; the stage-2 filter (K6) at the benchmark's shape and
      on pregathered pairs of a padded count, against a numpy oracle;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters);
@@ -35,8 +38,11 @@ Phases; each one fails the run on error:
      scores held against K2's FullSweep on the same pairs;
   9. benchmark: ``diamond_tpu_torch.cli benchmark`` (its table printed);
      K1, K3, K4 and K6 must have launched;
+     paths 4-9 report the card's kernel busy time (CUDA events around every
+     launch) and its idle share;
  10. timing: each kernel, its plain version and the bound on the largest
-     batch of its path (CUDA events).
+     batch of its path (CUDA events); K3 also on the largest one-read batch
+     of the long-reads run.
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -331,6 +337,67 @@ def sweep_case(seed: int, n_queries: int = 3, n_targets: int = 40):
     return queries, targets + [np.full(3, 23, np.int8), np.full(1, 23, np.int8)]
 
 
+def sweep_edges(seed: int):
+    """Seeded K5 cases beyond sweep_case: queries above one strip (700 and
+    1,100 letters), positive int8 biases, a segment three times (ties
+    between query rows) and once; targets holding the segment twice (ties
+    between columns) and once, targets of masked letters (score 0 against
+    the queries without bias) and random targets of 10-1,200 letters with a
+    planted stretch of a query.  Returns (queries, targets)."""
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, 20, 60).astype(np.int8)
+    queries = [(rng.integers(0, 20, 700).astype(np.int8),
+                rng.integers(1, 5, 700).astype(np.int32)),
+               (rng.integers(0, 20, 1100).astype(np.int8), None),
+               (np.tile(seg, 3), None),
+               (seg.copy(), None),
+               (rng.integers(0, 20, 40).astype(np.int8),
+                np.full(40, 4, np.int32))]
+    targets = [np.concatenate([seg, rng.integers(0, 20, 30).astype(np.int8),
+                               seg]), seg.copy(), np.full(50, 23, np.int8),
+               np.full(700, 23, np.int8)]
+    for k in range(20):
+        t = rng.integers(0, 20, int(rng.integers(10, 1200))).astype(np.int8)
+        q = queries[k % 2][0]
+        n = min(len(t), 80)
+        a = int(rng.integers(len(t) - n + 1))
+        b = int(rng.integers(len(q) - n + 1))
+        t[a:a + n] = q[b:b + n]
+        targets.append(t)
+    return queries, targets
+
+
+def sweep_pad_case(ss, targets, seed: int):
+    """K5 launches on a profile whose pad cells score: per length class of
+    ``targets``, a query of 300 letters with an int32 bias of +150 (the pad
+    letter then scores 22) and its first row dead (band length 0).  Returns
+    [(t_idx, band_len, prof_t, q_off, q_len)] on the card."""
+    import torch
+
+    from diamond_tpu_torch.ops.swipe_device import sweep_profile
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, 300).astype(np.int8)
+    out = []
+    for ch in ss.chunks(targets):
+        band = len(q) + ch.C
+        T_pb = ch.T + band
+        q_let = torch.zeros(T_pb, dtype=torch.int8)
+        q_bias = torch.zeros(T_pb, dtype=torch.int32)
+        q_valid = torch.zeros(T_pb, dtype=torch.int8)
+        q_let[ch.C:ch.C + len(q)] = torch.from_numpy(q)
+        q_bias[ch.C:ch.C + len(q)] = 150
+        q_valid[ch.C:ch.C + len(q)] = 1
+        dev = ch.t_idx.device
+        prof_t = sweep_profile(q_let.to(dev), q_bias.to(dev),
+                               q_valid.to(dev), ss._m32)
+        bl = (len(q) + ch.tl - 1).astype(np.int32)
+        bl[0] = 0
+        out.append((ch.t_idx, torch.from_numpy(bl).to(dev), prof_t, ch.C,
+                    len(q)))
+    return out
+
+
 def stage2_pairs(seed: int, n: int):
     """Seeded stage-2 candidate pairs: two letter streams with delimiters
     (2 %) and 64-letter delimiter margins, seed positions, every third pair
@@ -487,7 +554,7 @@ def main(argv=None):
     # -- 2. build -----------------------------------------------------------
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
-               "stage2")
+               "swipe_sweep", "stage2")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -537,8 +604,11 @@ def main(argv=None):
     # K3: the 3-frame DP of blastx -F
     k3_jobs = k3_mis = k3_host_mis = 0
     k3_classes = set()
-    for strands, jobs in swipe3_jobs(args.seed + 2, 8):
+    k3_reads = swipe3_jobs(args.seed + 2, 8)
+    per_read = []
+    for strands, jobs in k3_reads:
         kb, kc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda")
+        per_read.append((kb, kc))
         pb, pc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda",
                                   kernel=s3.banded_swipe3_plain)
         k3_mis += int((kb != pb).sum() + (kc != pc).sum())
@@ -553,10 +623,26 @@ def main(argv=None):
                 want = (0, -1)
             k3_host_mis += (int(kb[k]), int(kc[k])) != want
         k3_jobs += len(jobs)
+    # every read's jobs in one batch, as the -F pipeline sends a window
+    all_strands, all_jobs = [], []
+    for strands, jobs in k3_reads:
+        all_jobs += [(len(all_strands) + s, t, d0, d1) for s, t, d0, d1 in jobs]
+        all_strands += strands
+    launches = s3.banded_swipe3.launches
+    bb, bc = s3.swipe3_scores(all_strands, all_jobs, m.matrix32, go, ge, fs,
+                              "cuda")
+    k3_batch_launches = s3.banded_swipe3.launches - launches
+    pb, pc = s3.swipe3_scores(all_strands, all_jobs, m.matrix32, go, ge, fs,
+                              "cuda", kernel=s3.banded_swipe3_plain)
+    k3_batch_mis = int((bb != pb).sum() + (bc != pc).sum())
+    k3_batch_mis += int((bb != np.concatenate([b for b, _ in per_read])).sum()
+                        + (bc != np.concatenate([c for _, c in per_read])).sum())
     print(f"K3 parity: {k3_jobs} jobs over both strands, band classes "
           f"{sorted(k3_classes)}, kernel vs plain mismatches {k3_mis}, kernel "
-          f"vs native host DP mismatches {k3_host_mis}")
-    if k3_mis or k3_host_mis:
+          f"vs native host DP mismatches {k3_host_mis}; all {len(k3_reads)} "
+          f"reads in one batch ({k3_batch_launches} launches) vs plain and vs "
+          f"read by read: mismatches {k3_batch_mis}")
+    if k3_mis or k3_host_mis or k3_batch_mis:
         raise RuntimeError("K3 disagrees with its references")
 
     # K2: the full-matrix sweep of --swipe
@@ -631,27 +717,39 @@ def main(argv=None):
         raise RuntimeError("K4 disagrees with its references")
 
     # K5: the diagonal-band full-matrix sweep (SwipeSweep)
-    cq5, ct5 = sweep_case(args.seed + 5)
     ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
-    chunks5 = ss.chunks(ct5)
-    k5_mis = k5_launches = 0
-    for q, bias in cq5:
-        for ch, _band, bl, prof_t in ss.query_launches(q, bias, chunks5):
-            k5_mis += diff("k5", sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge),
-                           sd.swipe_sweep_plain(ch.t_idx, bl, prof_t, go, ge))
-            k5_launches += 1
-    cres5 = ss.run(cq5, ct5)
-    k5_host_mis = 0
-    for (q, bias), row in zip(cq5, cres5):
-        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
-                                              for t in ct5],
-                                    m.matrix32, m.gap_open, m.gap_extend)
-        k5_host_mis += sum(a != tuple(b) for a, b in zip(row, ref))
-    print(f"K5 parity: {len(cq5)} queries (lengths "
-          f"{[len(q) for q, _ in cq5]}) x {len(ct5)} targets in "
-          f"{len(chunks5)} length classes, {k5_launches} launches, kernel vs "
-          f"plain mismatches {k5_mis}, SwipeSweep vs host DP (full band) "
-          f"mismatches {k5_host_mis}")
+    k5_mis = k5_launches = k5_host_mis = 0
+    k5_cases = []
+    for cq5, ct5 in (sweep_case(args.seed + 5), sweep_edges(args.seed + 8)):
+        chunks5 = ss.chunks(ct5)
+        for q, bias in cq5:
+            for ch, _band, bl, prof_t in ss.query_launches(q, bias, chunks5):
+                k5_mis += diff("k5", sd.swipe_sweep(ch.t_idx, bl, prof_t, go,
+                                                    ge, ch.C, len(q)),
+                               sd.swipe_sweep_plain(ch.t_idx, bl, prof_t, go,
+                                                    ge))
+                k5_launches += 1
+        cres5 = ss.run(cq5, ct5)
+        for (q, bias), row in zip(cq5, cres5):
+            ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                                  for t in ct5],
+                                        m.matrix32, m.gap_open, m.gap_extend)
+            k5_host_mis += sum(a != tuple(b) for a, b in zip(row, ref))
+        k5_cases.append(f"{len(cq5)} queries (lengths "
+                        f"{[len(q) for q, _ in cq5]}) x {len(ct5)} targets in "
+                        f"{len(chunks5)} length classes, "
+                        f"{sum(r[0] == 0 for row in cres5 for r in row)} "
+                        f"score-0 pairs")
+    pads = sweep_pad_case(ss, sweep_edges(args.seed + 8)[1], args.seed + 9)
+    for t_idx, bl, prof_t, q_off, q_len in pads:
+        k5_mis += diff("k5", sd.swipe_sweep(t_idx, bl, prof_t, go, ge, q_off,
+                                            q_len),
+                       sd.swipe_sweep_plain(t_idx, bl, prof_t, go, ge))
+        k5_launches += 1
+    print(f"K5 parity: {'; '.join(k5_cases)}; a profile whose pad cells "
+          f"score (+150 bias) in {len(pads)} launches with a dead row each; "
+          f"{k5_launches} launches, kernel vs plain mismatches {k5_mis}, "
+          f"SwipeSweep vs host DP (full band) mismatches {k5_host_mis}")
     if k5_mis or k5_host_mis:
         raise RuntimeError("K5 disagrees with its references")
 
@@ -882,11 +980,14 @@ def main(argv=None):
     ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
     sd.reset_dispatch_stats()
     zero_counts()
+    events.clear()
     t0 = time.perf_counter()
-    res5 = ss.run(queries5, letters)
+    res5 = ss.run(queries5, letters, kernel=timed(sd.swipe_sweep))
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    paths["k5"] = dict(launches=counts)
+    busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    paths["k5"] = dict(launches=counts, device_busy_s=busy)
     if counts["k5"] == 0 or counts["k5"] != sd.dispatch_count:
         raise RuntimeError(f"SwipeSweep launched K5 {counts['k5']} times "
                            f"for {sd.dispatch_count} dispatches")
@@ -898,23 +999,40 @@ def main(argv=None):
                        != S).sum())
     chunks5 = ss.chunks(letters)
     print(f"SwipeSweep: {len(queries5)} queries x {len(letters)} targets, "
-          f"{cells} cells (q_len x t_len), {counts['k5']} K5 launches over "
-          f"{len(chunks5)} length classes, {wall:.2f} s on {kind} "
-          f"({name_power}); scores vs FullSweep (K2) mismatches "
-          f"{k5_full_mis}; launches {counts}")
+          f"{cells} cells (q_len x t_len), {sd.dispatch_cells} cells walked, "
+          f"{counts['k5']} K5 launches over {len(chunks5)} length classes, "
+          f"{wall:.2f} s on {kind} ({name_power}); kernel busy {busy:.4f} s, "
+          f"idle share {1 - busy / wall:.4f}; scores vs FullSweep (K2) "
+          f"mismatches {k5_full_mis}; launches {counts}")
     if k5_full_mis:
         raise RuntimeError("SwipeSweep (K5) and FullSweep (K2) disagree")
 
     phase("benchmark (diamond_tpu_torch.cli benchmark)")
     zero_counts()
+    events.clear()
+    # each wrapper counts its launches on the name its module binds, so the
+    # timed stand-ins carry the counts, handed back after the run
+    stand_ins = [(mod, name, getattr(mod, name), timed(getattr(mod, name)))
+                 for mod, name in ((s3, "banded_swipe3"),
+                                   (sud, "banded_swipe_uniform_cuda"),
+                                   (s2, "stage2_filter"))]
+    for _mod, _name, _fn, w in stand_ins:
+        w.launches = 0
     t0 = time.perf_counter()
-    rc = cli_main(["benchmark"])
+    with Patched((sd.DeviceDP, "launch", timed(launch)),
+                 *[(mod, name, w) for mod, name, _fn, w in stand_ins]):
+        rc = cli_main(["benchmark"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    for _mod, _name, fn, w in stand_ins:
+        fn.launches += w.launches
     counts = launch_counts()
-    paths["bench"] = dict(launches=counts)
+    busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    paths["bench"] = dict(launches=counts, device_busy_s=busy)
     print(f"benchmark: {wall:.2f} s on {kind} ({name_power}); kernel "
-          f"launches {counts}")
+          f"launches {counts}; kernel busy {busy:.4f} s, idle share "
+          f"{1 - busy / wall:.4f} (the torch rows' own card work is not in "
+          f"the busy time)")
     if rc:
         raise RuntimeError(f"benchmark exited {rc}")
     missing = [k for k in ("k1", "k3", "k4", "k6") if counts[k] == 0]
@@ -962,28 +1080,54 @@ def main(argv=None):
         lambda: per_class(sd.banded_swipe_multi_plain), cells, K1_OPS,
         K1_NOTE, n_bytes, 10)))
 
-    # K3 on the largest 3-frame batch of the --long-reads run
+    # K3 on the largest 3-frame batch of the --long-reads run (a window of
+    # reads), and on that window's largest one-read batch (the shape one
+    # launch set had when every read launched on its own)
     strands, jobs3 = captured["k3"][1]
-    pk = s3.pack_swipe3(strands, jobs3)
-    x3 = {k: torch.from_numpy(v).cuda() for k, v in pk.items()}
-    K = np.array([s3.offsets_per_lane(int(b)) for b in pk["jobs"][:, 3]])
-    sel = [(int(k), torch.from_numpy(pk["jobs"][K == k]).cuda())
-           for k in np.unique(K)]
 
-    def k3_call(fn):
-        return [o for k, jb in sel
-                for o in fn(x3["t_cat"], x3["q_cat"], jb, x3["reqs"], m32,
-                            go, ge, fs, k)]
+    def k3_batch(strands, jobs3):
+        pk = s3.pack_swipe3(strands, jobs3)
+        K = np.array([s3.offsets_per_lane(int(b)) for b in pk["jobs"][:, 3]])
+        order = np.lexsort((-pk["jobs"][:, 1].astype(np.int64), K))
+        x3 = {k: torch.from_numpy(v).cuda() for k, v in pk.items()}
+        sel = [(int(k), torch.from_numpy(np.ascontiguousarray(
+            pk["jobs"][order][K[order] == k])).cuda()) for k in np.unique(K)]
 
-    cells = int(swipe3_cells(pk["jobs"], pk["reqs"]).sum())
-    n_bytes = (len(pk["t_cat"]) + len(pk["q_cat"]) + 4 * pk["jobs"].size
-               + 4 * pk["reqs"].size + 4 * 32 * 32 + 2 * 4 * len(pk["jobs"]))
-    print(f"K3 batch: {len(jobs3)} jobs over both strands of one read, band "
-          f"classes {[(32 * k, int((K == k).sum())) for k, _ in sel]}")
+        def call(fn):
+            return [o for k, jb in sel
+                    for o in fn(x3["t_cat"], x3["q_cat"], jb, x3["reqs"], m32,
+                                go, ge, fs, k)]
+
+        cells = int(swipe3_cells(pk["jobs"], pk["reqs"]).sum())
+        n_bytes = (len(pk["t_cat"]) + len(pk["q_cat"]) + 4 * pk["jobs"].size
+                   + 4 * pk["reqs"].size + 4 * 32 * 32
+                   + 2 * 4 * len(pk["jobs"]))
+        return call, cells, n_bytes, [(32 * k, int((K == k).sum()))
+                                      for k, _ in sel]
+
+    read_of = np.array([s // 2 for s, _, _, _ in jobs3])
+    work = np.array([len(t) * (d1 - d0) for _, t, d0, d1 in jobs3])
+    r1 = int(np.argmax(np.bincount(read_of, weights=work)))
+    one = [(s - 2 * r1, t, d0, d1) for s, t, d0, d1 in jobs3
+           if s // 2 == r1]
+    call1, cells1, bytes1, cls1 = k3_batch(strands[2 * r1: 2 * r1 + 2], one)
+    print(f"K3 one-read batch: {len(one)} jobs over both strands of one "
+          f"read, band classes {cls1}")
+    ms1, plain1, bound1, by1 = time_kernel(
+        "k3", lambda: call1(s3.banded_swipe3),
+        lambda: call1(s3.banded_swipe3_plain), cells1, K3_OPS, K3_NOTE,
+        bytes1, 20)
+    print(f"K3 one-read batch: kernel {ms1:.4f} ms, bound {bound1:.5f} ms "
+          f"({by1}), {ms1 / bound1:.1f}x; {kind}, {name_power}")
+    call3, cells3, bytes3, cls3 = k3_batch(strands, jobs3)
+    print(f"K3 batch: {len(jobs3)} jobs of {len(strands) // 2} reads (the "
+          f"largest window), band classes {cls3}; the long-reads run: "
+          f"{paths['k3']['launches']['k3']} K3 launches, "
+          f"{paths['k3']['device_busy_s']:.4f} s of card time")
     rows.append(("k3", time_kernel(
-        "k3", lambda: k3_call(s3.banded_swipe3),
-        lambda: k3_call(s3.banded_swipe3_plain), cells, K3_OPS, K3_NOTE,
-        n_bytes, 20)))
+        "k3", lambda: call3(s3.banded_swipe3),
+        lambda: call3(s3.banded_swipe3_plain), cells3, K3_OPS, K3_NOTE,
+        bytes3, 10)))
 
     # K2 on the largest launch of the --swipe run
     queries, tblock, t_order = captured["k2"][1]
@@ -1037,18 +1181,21 @@ def main(argv=None):
     launches5 = [(len(q), L) for q, _ in queries5
                  for L in ss.query_launches(q, None, chunks5)]
     qlen5, (ch, band5, bl5, prof5) = max(
-        launches5, key=lambda x: len(x[1][0].rows) * x[1][0].T * x[1][1])
+        launches5, key=lambda x: len(x[1][0].rows) * x[1][0].T * x[0])
     cells = qlen5 * int(ch.tl.sum())
-    n_bytes = (ch.t_idx.numel() + 4 * bl5.numel() + 4 * prof5.numel()
+    walked = sd.sweep_walk_cells(ch.T, ch.C, qlen5, ch.tl + qlen5 - 1)
+    n_bytes = (ch.t_idx.numel() + 4 * bl5.numel() + 4 * 32 * qlen5
                + 3 * 4 * len(ch.rows))
     print(f"K5 batch: {len(ch.rows)} targets of up to {ch.T} letters x query "
-          f"of {qlen5}, band {band5} ({len(ch.rows) * ch.T * band5} band "
-          f"cells walked for {cells} matrix cells), of {len(launches5)} "
-          f"launches")
+          f"of {qlen5}, band {band5}: {walked} cells walked (query rows x "
+          f"columns; the diagonal band would walk "
+          f"{len(ch.rows) * ch.T * band5}) for {cells} matrix cells, of "
+          f"{len(launches5)} launches")
     rows.append(("k5", time_kernel(
-        "k5", lambda: sd.swipe_sweep(ch.t_idx, bl5, prof5, go, ge),
+        "k5", lambda: sd.swipe_sweep(ch.t_idx, bl5, prof5, go, ge, ch.C,
+                                     qlen5),
         lambda: sd.swipe_sweep_plain(ch.t_idx, bl5, prof5, go, ge),
-        cells, K45_OPS, K45_NOTE, n_bytes, 3)))
+        cells, K45_OPS, K45_NOTE, n_bytes, 10)))
 
     # K6 at the benchmark's stage-2 row: 131,072 pairs x 96 window letters
     meta6 = np.zeros((3, n6), np.int32)
@@ -1061,7 +1208,6 @@ def main(argv=None):
         lambda: s2.stage2_filter_plain(*x6, m2, 26, w6 // 2),
         n6 * w6, K6_OPS, K6_NOTE, n_bytes, 20)))
 
-    uniform_src = "diamond_tpu_torch/csrc/uniform_swipe.cu"
     meta = {
         "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
                "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)",
@@ -1072,10 +1218,11 @@ def main(argv=None):
         "k2": ("full_swipe", "diamond_tpu_torch/csrc/full_swipe.cu",
                "diamond_tpu/ops/swipe_device.py:789 (full_swipe_pallas_sweep)",
                "k2"),
-        "k4": ("banded_swipe_uniform_cuda", uniform_src,
+        "k4": ("banded_swipe_uniform_cuda",
+               "diamond_tpu_torch/csrc/uniform_swipe.cu",
                "diamond_tpu/ops/swipe_pallas.py:114 (banded_swipe_pallas)",
                "bench"),
-        "k5": ("swipe_sweep", uniform_src,
+        "k5": ("swipe_sweep", "diamond_tpu_torch/csrc/swipe_sweep.cu",
                "diamond_tpu/ops/swipe_device.py:582 (banded_swipe_pallas_sweep)",
                "k5"),
         "k6": ("stage2_filter", "diamond_tpu_torch/csrc/stage2.cu",

@@ -17,20 +17,34 @@
 // What bounds it on the card: int32 ALU work.  The recurrence needs 15 int32
 // operations per cell and the whole DP state (S and the horizontal-gap state
 // for one column of the band) stays in registers; each column reads one
-// target letter and, in one lane, one query position's three letters, so
-// device-memory traffic is a few bytes per column against 3 x band x 15
-// operations.  Tensor cores do not apply (max-plus).  What the design does
-// about it:
+// target letter and one query position's three letters, so device-memory
+// traffic is a few bytes per column against 3 x band x 15 operations.
+// Tensor cores do not apply (max-plus).  A job's columns form one serial
+// chain, so the kernel is only as fast as that chain is short and as many
+// chains as the card holds run at once.  What the design does about it:
+//   - the caller batches the score-only jobs of many reads into one launch
+//     per band class, longest first, so thousands of warps fill the card;
 //   - one warp per job; lane l owns query offsets [l*K, (l+1)*K) with all
 //     three frame rows of each (K a template parameter, one launch per band
 //     class: K = 1/2/4/8/16 for band <= 32/64/128/256/512 offsets), so the
 //     frame rows r - 1, r + 1 and r + 3 are in the lane except at its ends:
 //     one shuffle each for r - 1 and r + 1, three for r + 3;
-//   - the per-frame vertical-gap scan is an in-lane scan over K offsets plus
-//     one 5-step __shfl_up_sync scan per frame;
-//   - the query window slides one offset per column through registers and a
+//   - the vertical gap is a lazy F: each lane runs its K offsets with
+//     nothing entering, takes the previous lane's outgoing F (one shuffle
+//     per frame) and votes (__any_sync) whether that raised any lane's
+//     outgoing F; only then a 5-step warp scan carries the gaps on, exactly
+//     (repeating the one-lane carry until no lane rises was slower: a gap
+//     of BLOSUM62's extension cost 1 crosses several lanes, so most columns
+//     took several votes).  The F values are clamped at 0, which changes no
+//     H (every H candidate is >= 0);
+//   - target letters and packed query positions come 32 columns at a time,
+//     one per lane, loaded one block of 32 columns ahead, and reach the warp
+//     by __shfl_sync: no device-memory load sits on the column's chain.  The
+//     query window slides one offset per column through registers and a
 //     __shfl_down_sync; the three letters of an offset and which frames are
 //     valid there (the stop row of _forward_np) are packed in one int;
+//   - the max-plus steps use Hopper's DPX instructions (__vimax3_s32_relu,
+//     __viaddmax_s32, __viaddmax_s32_relu);
 //   - the 32x32 matrix sits transposed in shared memory, so 32 lanes reading
 //     one target letter's row by their query letters hit distinct banks;
 //   - each lane keeps its own best and the first column it was reached; one
@@ -47,9 +61,9 @@ namespace {
 
 constexpr int NEG = -(1 << 20);
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS = 4;     // warps (jobs) per block
-constexpr int JOB_COLS = 5;  // t_off, t_len, i0, band, req
-constexpr int REQ_COLS = 4;  // q_off, len0, len1, len2
+constexpr int WARPS = 4;        // warps (jobs) per block
+constexpr int JOB_COLS = 5;     // t_off, t_len, i0, band, req
+constexpr int REQ_COLS = 4;     // q_off, len0, len1, len2
 
 // The three frame letters of query position i (5 bits each) and, in bits
 // 15-17, which frames are computed there: frame f at i is valid when
@@ -100,22 +114,30 @@ banded_swipe3_kernel(const int8_t* __restrict__ t_cat,
   const int8_t* q2 = q1 + len1;
   const int8_t* t = t_cat + t_off;
   const int o0 = lane * K;
+  const int kge = K * ge;  // decay of a vertical gap across one lane
 
   int S[K][3], Hg[K][3], P[K];
-  bool inb[K];
+  unsigned inb = 0;  // bit k: offset o0 + k lies in the band
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    inb[k] = o0 + k < band;
+    if (o0 + k < band) inb |= 1u << k;
     P[k] = load_q3(q0, q1, q2, len0, stop, i0 + o0 + k);  // column 0
 #pragma unroll
     for (int f = 0; f < 3; ++f) S[k][f] = Hg[k][f] = 0;
   }
+  // prefetch, one lane per column: the target letter of column j and the
+  // query position that enters the window after column j (i0 + j + 32K)
+  int tnext = lane < t_len ? (int(t[lane]) & 31) : 0;
+  int qnext = load_q3(q0, q1, q2, len0, stop, i0 + lane + 32 * K);
+  int tword = 0, qword = 0;
   int lbest = 0, lcol = -1;
-  int tword = 0;
   for (int j = 0; j < t_len; ++j) {
-    if ((j & 31) == 0) {  // 32 target letters, one per lane
-      const int jj = j + lane;
-      tword = jj < t_len ? (int(t[jj]) & 31) : 0;
+    if ((j & 31) == 0) {  // take this block's words, load the next block's
+      tword = tnext;
+      qword = qnext;
+      const int jj = j + 32 + lane;
+      tnext = jj < t_len ? (int(t[jj]) & 31) : 0;
+      qnext = load_q3(q0, q1, q2, len0, stop, i0 + jj + 32 * K);
     }
     const int32_t* mrow = Mt + 32 * __shfl_sync(FULL, tword, j & 31);
 
@@ -131,63 +153,68 @@ banded_swipe3_kernel(const int8_t* __restrict__ t_cat,
       if (lane == 31) h_dn[f] = 0;
     }
 
-    // cur0 = max(diag + s, max(r-1, r+1) + s - fs, hg, 0); in-lane
-    // inclusive prefix max per frame of g = cur0 - go + offset * ge
-    int C[K][3], G[K][3];
-    int run[3] = {NEG, NEG, NEG};
+    // cur0 = max(diag + s, max(r-1, r+1) + s - fs, hg, 0); the lane's
+    // outgoing vertical gap per frame with nothing entering its first row
+    int C[K][3];
+    int fo[3] = {0, 0, 0};
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
-        const bool v = inb[k] && ((P[k] >> (15 + f)) & 1);
+        const bool v = ((inb >> k) & 1u) && ((P[k] >> (15 + f)) & 1);
         const int s = mrow[(P[k] >> (5 * f)) & 31];
         const int up = f > 0 ? S[k][f - 1] : (k > 0 ? S[k - 1][2] : s_up);
         const int dn = f < 2 ? S[k][f + 1] : (k < K - 1 ? S[k + 1][0] : s_dn);
         const int hg = k < K - 1 ? Hg[k + 1][f] : h_dn[f];
-        const int c = max(max(S[k][f] + s, max(up, dn) + s - fs),
-                          max(hg, 0));
+        const int c = __vimax3_s32_relu(S[k][f] + s, max(up, dn) + (s - fs),
+                                        hg);
         C[k][f] = c;
-        run[f] = max(run[f], v ? c - go + (o0 + k) * ge : NEG);
-        G[k][f] = run[f];
+        fo[f] = __viaddmax_s32_relu(fo[f], -ge, v ? c - go : NEG);
       }
     }
-    // warp scan of the lane totals per frame -> exclusive prefix
-    int excl[3];
-#pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      int incl = run[f];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl = max(incl, o);
-      }
-      excl[f] = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl[f] = NEG;
-    }
-    // G becomes F: the vertical gap entering the frame's next row (r + 3)
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int f = 0; f < 3; ++f)
-        G[k][f] = max(G[k][f], excl[f]) - (o0 + k) * ge;
+    // lazy F: each lane takes the previous lane's outgoing gap; if that
+    // raises any lane's outgoing gap, a warp scan carries it on exactly
     int f_in[3];
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
-      f_in[f] = __shfl_up_sync(FULL, G[K - 1][f], 1);
-      if (lane == 0) f_in[f] = NEG;
+      f_in[f] = __shfl_up_sync(FULL, fo[f], 1);
+      if (lane == 0) f_in[f] = 0;
+    }
+    bool rise = false;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const int nf = __viaddmax_s32(f_in[f], -kge, fo[f]);
+      rise |= nf != fo[f];
+      fo[f] = nf;
+    }
+    if (__any_sync(FULL, rise)) {  // inclusive max-plus scan over lanes
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int f = 0; f < 3; ++f) {
+          const int o = __shfl_up_sync(FULL, fo[f], off);
+          if (lane >= off) fo[f] = __viaddmax_s32(o, -off * kge, fo[f]);
+        }
+      }
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        f_in[f] = __shfl_up_sync(FULL, fo[f], 1);
+        if (lane == 0) f_in[f] = 0;
+      }
     }
 
+    // H, the vertical gap entering each row, the horizontal-gap state
     int lmax = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
-        const bool v = inb[k] && ((P[k] >> (15 + f)) & 1);
-        const int fv = k > 0 ? G[k - 1][f] : f_in[f];
+        const bool v = ((inb >> k) & 1u) && ((P[k] >> (15 + f)) & 1);
         const int hg = k < K - 1 ? Hg[k + 1][f] : h_dn[f];  // not yet updated
-        const int hn = v ? max(C[k][f], fv) : 0;
+        const int hn = v ? max(C[k][f], f_in[f]) : 0;
+        f_in[f] = __viaddmax_s32_relu(f_in[f], -ge, hn - go);
         lmax = max(lmax, hn);
-        Hg[k][f] = v ? max(hg - ge, hn - go) : 0;
+        Hg[k][f] = v ? __viaddmax_s32(hg, -ge, hn - go) : 0;
         S[k][f] = hn;
       }
     }
@@ -198,7 +225,8 @@ banded_swipe3_kernel(const int8_t* __restrict__ t_cat,
 
     // slide the query window one offset: offset o now holds i0 + j + 1 + o
     int p_in = __shfl_down_sync(FULL, P[0], 1);
-    if (lane == 31) p_in = load_q3(q0, q1, q2, len0, stop, i0 + j + 32 * K);
+    const int p_new = __shfl_sync(FULL, qword, j & 31);
+    if (lane == 31) p_in = p_new;
 #pragma unroll
     for (int k = 0; k < K - 1; ++k) P[k] = P[k + 1];
     P[K - 1] = p_in;

@@ -1,17 +1,13 @@
 // Score-only banded Smith-Waterman of one shared profile against a batch of
 // target rows with a uniform band: the Hopper kernel behind
-// ops/swipe_uniform_device (band from a mask) and ops/swipe_device.SwipeSweep
-// (band from a per-row length).
+// ops/swipe_uniform_device (the benchmark and the direct DP route).
 //
-// Replaces two TPU kernels with one recurrence:
-//   - diamond_tpu/ops/swipe_pallas.py:36-145 (_make_kernel +
-//     banded_swipe_pallas, "K4"): band rows valid where band_mask[b][r];
-//   - diamond_tpu/ops/swipe_device.py:516-629 (_make_kernel_sweep +
-//     banded_swipe_pallas_sweep, "K5"): band rows valid where r < band_len[b].
-// Target row b walks columns j = 0..T-1; band row r of column j scores
-// prof_t[letter_j][j + r] (the profile stored transposed, [32][T + band], so
-// a column's band reads one contiguous run of a profile row), NEG where the
-// row is out of band.  A cell is valid iff its score > NEG / 2; invalid
+// Replaces the TPU kernel diamond_tpu/ops/swipe_pallas.py:36-145
+// (_make_kernel + banded_swipe_pallas): band rows valid where
+// band_mask[b][r].  Target row b walks columns j = 0..T-1; band row r of
+// column j scores prof_t[letter_j][j + r] (the profile stored transposed,
+// [32][T + band], so a column's band reads one contiguous run of a profile
+// row), NEG where the row is out of band.  A cell is valid iff its score > NEG / 2; invalid
 // cells end at 0.  H, E and the lazy-F prefix max are those of
 // ops/swipe_uniform.column_step; outputs (best, max_col, max_row) with
 // max_col the first column where the best rises strictly and max_row the
@@ -40,7 +36,7 @@
 // Rows past the band (t * R + k >= band) score NEG, so their H and E stay 0
 // and they change nothing below them.
 // The kernel allocates nothing, does not synchronise, and launches on the
-// caller's stream; the C entry points return cudaGetLastError().
+// caller's stream; the C entry point returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -52,11 +48,10 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 
-template <int R, bool MASK>
+template <int R>
 __global__ void __launch_bounds__(MAX_THREADS)
 uniform_swipe_kernel(const int8_t* __restrict__ t_idx,
                      const int8_t* __restrict__ band_mask,
-                     const int32_t* __restrict__ band_len,
                      const int32_t* __restrict__ prof_t, int T, int band,
                      int go, int ge, int32_t* __restrict__ best_out,
                      int32_t* __restrict__ col_out,
@@ -74,12 +69,10 @@ uniform_swipe_kernel(const int8_t* __restrict__ t_idx,
   const size_t P = size_t(T) + band;  // profile row length
 
   unsigned inb = 0;  // bit k: row r0 + k lies in the band
-  const int lim = MASK ? band : min(band, band_len[b]);
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int r = r0 + k;
-    if (r < lim && (!MASK || band_mask[size_t(b) * band + r] != 0))
-      inb |= 1u << k;
+    if (r < band && band_mask[size_t(b) * band + r] != 0) inb |= 1u << k;
   }
 
   int H[R], E[R];
@@ -170,17 +163,15 @@ uniform_swipe_kernel(const int8_t* __restrict__ t_idx,
   }
 }
 
-template <bool MASK>
 int launch(int R, int threads, const void* t_idx, const void* band_mask,
-           const void* band_len, const void* prof_t, int B, int T, int band,
-           int go, int ge, void* best, void* col, void* row, void* stream) {
+           const void* prof_t, int B, int T, int band, int go, int ge,
+           void* best, void* col, void* row, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
       threads * R < band)
     return int(cudaErrorInvalidValue);
   auto ti = static_cast<const int8_t*>(t_idx);
   auto bm = static_cast<const int8_t*>(band_mask);
-  auto bl = static_cast<const int32_t*>(band_len);
   auto pf = static_cast<const int32_t*>(prof_t);
   auto bo = static_cast<int32_t*>(best);
   auto co = static_cast<int32_t*>(col);
@@ -190,8 +181,8 @@ int launch(int R, int threads, const void* t_idx, const void* band_mask,
   switch (R) {
 #define CASE(RR)                                                          \
   case RR:                                                                \
-    uniform_swipe_kernel<RR, MASK><<<grid, block, 0, s>>>(                \
-        ti, bm, bl, pf, T, band, go, ge, bo, co, ro);                     \
+    uniform_swipe_kernel<RR><<<grid, block, 0, s>>>(                      \
+        ti, bm, pf, T, band, go, ge, bo, co, ro);                         \
     break;
     CASE(1) CASE(2) CASE(4) CASE(8) CASE(16)
 #undef CASE
@@ -208,16 +199,6 @@ extern "C" int uniform_swipe_mask_launch(
     int rows_per_thread, int threads, const void* t_idx, const void* band_mask,
     const void* prof_t, int B, int T, int band, int go, int ge, void* best,
     void* col, void* row, void* stream) {
-  return launch<true>(rows_per_thread, threads, t_idx, band_mask, nullptr,
-                      prof_t, B, T, band, go, ge, best, col, row, stream);
-}
-
-// K5: as K4 with band_len int32 [B] (row r valid iff r < band_len[b]) in
-// place of the mask.
-extern "C" int uniform_swipe_len_launch(
-    int rows_per_thread, int threads, const void* t_idx, const void* band_len,
-    const void* prof_t, int B, int T, int band, int go, int ge, void* best,
-    void* col, void* row, void* stream) {
-  return launch<false>(rows_per_thread, threads, t_idx, nullptr, band_len,
-                       prof_t, B, T, band, go, ge, best, col, row, stream);
+  return launch(rows_per_thread, threads, t_idx, band_mask, prof_t, B, T,
+                band, go, ge, best, col, row, stream);
 }

@@ -12,7 +12,9 @@ column, and each cell takes the max of the same-frame diagonal + s, rows
 r - 1 / r + 1 of the previous column + s - frameshift, the horizontal gap
 from row r + 3 of the previous column, the frame's vertical gap, and 0.
 Outputs per job: the best score and max_col, the first DP column where the
-best rises strictly (-1 when nothing scores).
+best rises strictly (-1 when nothing scores).  ``swipe3_scores`` takes the
+jobs of many reads at once: ``align/frameshift`` sends a window of a
+block's reads per call, one launch per band class.
 
 Batch layout (flat, ragged, int32 offsets): ``t_cat`` int8 target letters,
 ``q_cat`` int8 frame letters with ``reqs`` rows (q_off, len0, len1, len2)
@@ -166,7 +168,8 @@ def banded_swipe3_plain(t_cat, q_cat, jobs, reqs, matrix32, go: int, ge: int,
 # ---------------------------------------------------------------------------
 
 def pack_swipe3(strands, jobs):
-    """The kernel's numpy inputs for 3-frame jobs over one query's strands.
+    """The kernel's numpy inputs for 3-frame jobs over query strands (one
+    read's two, or the strands of many reads).
 
     strands: per strand, its three frame translations; jobs: [(strand,
     target_letters, d_begin, d_end)] as ops/swipe3.banded_3frame_swipe_np
@@ -200,30 +203,34 @@ def swipe3_scores(strands, jobs, matrix32, go: int, ge: int, fs: int,
                   device, kernel=None):
     """Score every (strand, target, d_begin, d_end) job with one launch per
     band class (bands <= MAX_BAND) of ``kernel`` (``banded_swipe3`` unless
-    given).  Returns numpy int64 (best, max_col) in job order; max_col is
-    the DP column (-1 when nothing scores)."""
+    given); ``strands`` may hold the strands of many reads.  A launch's jobs
+    run longest target first, so long warps start first and short ones fill
+    in behind them.  Returns numpy int64 (best, max_col) in job order;
+    max_col is the DP column (-1 when nothing scores)."""
     global dispatch_count
     kernel = kernel or banded_swipe3
     packed = pack_swipe3(strands, jobs)
     bands = packed["jobs"][:, 3]
     if len(bands) and bands.max() > MAX_BAND:
         raise ValueError(f"3-frame bands above {MAX_BAND} take the host DP")
+    n = len(bands)
+    K = np.array([offsets_per_lane(int(b)) for b in bands], np.int64)
+    order = np.lexsort((-packed["jobs"][:, 1].astype(np.int64), K))
+    packed["jobs"] = np.ascontiguousarray(packed["jobs"][order])
     dev = torch.device(device)
     x = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
     m32 = torch.from_numpy(np.ascontiguousarray(matrix32, dtype=np.int32)).to(dev)
-    K = np.array([offsets_per_lane(int(b)) for b in bands], np.int64)
-    best = np.zeros(len(bands), np.int64)
-    max_col = np.full(len(bands), -1, np.int64)
+    classes, los = np.unique(K[order], return_index=True)
     outs = []
-    for k in np.unique(K):
-        sel = np.flatnonzero(K == k)
-        idx = torch.from_numpy(sel).to(dev)
-        outs.append((sel, kernel(x["t_cat"], x["q_cat"], x["jobs"][idx].contiguous(),
-                                 x["reqs"], m32, go, ge, fs, int(k))))
+    for k, lo, hi in zip(classes, los, np.append(los[1:], n)):
+        outs.append(kernel(x["t_cat"], x["q_cat"], x["jobs"][lo:hi], x["reqs"],
+                           m32, go, ge, fs, int(k)))
         dispatch_count += 1
-    for sel, (b, c) in outs:
-        best[sel] = b.cpu().numpy()
-        max_col[sel] = c.cpu().numpy()
+    best = np.zeros(n, np.int64)
+    max_col = np.full(n, -1, np.int64)
+    if outs:
+        res = torch.stack([torch.cat([o[k] for o in outs]) for k in range(2)])
+        best[order], max_col[order] = res.cpu().numpy()
     return best, max_col
 
 

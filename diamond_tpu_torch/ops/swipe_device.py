@@ -17,8 +17,8 @@ version is ``full_swipe_plain``.
 
 ``SwipeSweep.run`` scores every (query, target) pair as one diagonal band
 per pair over length classes of targets kept on the card, with
-``swipe_sweep``: the per-row-length entry point of the uniform-band kernel
-(CUDA C++ in ``csrc/uniform_swipe.cu``), which replaces the TPU kernel
+``swipe_sweep`` (CUDA C++ in ``csrc/swipe_sweep.cu``, which walks only the
+query's rows of the band), which replaces the TPU kernel
 ``diamond_tpu/ops/swipe_device.py:banded_swipe_pallas_sweep``; its plain
 version is ``swipe_sweep_plain``.
 
@@ -759,51 +759,102 @@ def from_pallas_full_sweep(bounds32, t_idx8, q_let8, q_bias8, q_valid8,
 
 # ---------------------------------------------------------------------------
 # The diagonal-band sweep: every query against length classes of targets
-# kept on the card, one uniform band per class
+# kept on the card, one uniform band per class, the kernel walking only the
+# query's rows of the band
 # ---------------------------------------------------------------------------
 
 def _k5():
-    return swipe_uniform_device._launcher("uniform_swipe_len_launch")
+    from diamond_tpu_torch.ops import _cuda
+
+    return _cuda.launcher("swipe_sweep", "swipe_sweep_launch",
+                          "ipppiiiiiiippppp")
 
 
-def swipe_sweep(t_idx, band_len, prof_t, go: int, ge: int):
-    """Full-band SW of one query profile against B target rows: the uniform-
-    band kernel with each row's band given by its length.
+def _query_rows(T: int, band: int, q_off, q_len):
+    """Check (q_off, q_len) against the kernel's layout: every query row in
+    the band at every column."""
+    if (q_off is None) != (q_len is None):
+        raise ValueError("give both q_off and q_len, or neither")
+    if q_off is not None and (q_len < 0 or q_off < T - 1
+                              or q_off + q_len > band):
+        raise ValueError(f"query rows [{q_off}, {q_off + q_len}) must lie in "
+                         f"[T - 1, band) = [{T - 1}, {band})")
 
-    t_idx int8 [B, T] shifted target letters, band_len int32 [B] (band row r
-    of target b is valid iff r < band_len[b]; qlen + tlen - 1 covers every
-    diagonal, 0 a dead row), prof_t int32 [32, T + band] (row r of column j
-    scores prof_t[letter][j + r], NEG out of the query); go = gap open +
-    extend, ge = gap extend.  Returns int32 [B] (best, max_col, max_row) in
-    shifted coordinates, with the tie rules of ``banded_swipe_uniform_cuda``.
 
-    CUDA tensors launch the kernel (counted in ``swipe_sweep.launches``); CPU
-    tensors run ``swipe_sweep_plain``."""
-    _, _, band = swipe_uniform_device.check_uniform(
+def swipe_sweep(t_idx, band_len, prof_t, go: int, ge: int, q_off=None,
+                q_len=None):
+    """Full-band SW of one query profile against B target rows: band row r
+    of target b is valid iff r < band_len[b] (qlen + tlen - 1 covers every
+    diagonal, 0 a dead row).
+
+    t_idx int8 [B, T] shifted target letters, band_len int32 [B], prof_t
+    int32 [32, T + band] (row r of column j scores prof_t[letter][j + r], NEG
+    out of the query); go = gap open + extend, ge = gap extend; q_off,
+    q_len: the query's rows of the profile (SwipeSweep's C and qlen), which
+    must lie in [T - 1, band); the profile's other rows count as NEG.
+    Returns int32 [B] (best, max_col, max_row) in shifted coordinates, with
+    the tie rules of ``banded_swipe_uniform_cuda``.
+
+    CUDA tensors launch the kernel (counted in ``swipe_sweep.launches``),
+    which walks only the query's rows and needs them given; CPU tensors run
+    ``swipe_sweep_plain``."""
+    B, T, band = swipe_uniform_device.check_uniform(
         t_idx, band_len, prof_t, torch.int32, "band_len")
     if band_len.dim() != 1:
         raise ValueError("band_len must be [B]")
+    _query_rows(T, band, q_off, q_len)
     dev = t_idx.device
     if dev.type == "cpu":
-        return swipe_sweep_plain(t_idx, band_len, prof_t, go, ge)
+        return swipe_sweep_plain(t_idx, band_len, prof_t, go, ge, q_off, q_len)
     if dev.type != "cuda":
         raise ValueError(f"swipe_sweep runs on cuda or cpu, not {dev}")
-    out = swipe_uniform_device.launch_uniform(
-        "uniform_swipe_len_launch", t_idx, band_len, prof_t, band, go, ge)
-    if t_idx.numel():
-        swipe_sweep.launches += 1
-    return out
+    if q_off is None:
+        raise ValueError("the swipe_sweep kernel needs the query's rows "
+                         "(q_off, q_len)")
+    out = [torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    if B == 0 or T == 0 or q_len == 0:
+        return tuple(out)
+    R, strips = sweep_shape(q_len)
+    scratch = torch.empty((B if strips > 1 else 0, 2, T, 2),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _k5()(R, t_idx.data_ptr(), band_len.data_ptr(),
+                    prof_t.data_ptr(), B, T, band, int(q_off), int(q_len),
+                    int(go), int(ge), scratch.data_ptr(), out[0].data_ptr(),
+                    out[1].data_ptr(), out[2].data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"swipe_sweep launch failed: CUDA error {err}")
+    swipe_sweep.launches += 1
+    return tuple(out)
 
 
 swipe_sweep.launches = 0
 
 
-def swipe_sweep_plain(t_idx, band_len, prof_t, go: int, ge: int):
-    """The kernel's function in tensor ops (``swipe_uniform.uniform_walk``);
-    exact int32, on whatever device the inputs are on."""
+def swipe_sweep_plain(t_idx, band_len, prof_t, go: int, ge: int, q_off=None,
+                      q_len=None):
+    """The kernel's function in tensor ops over the whole band
+    (``swipe_uniform.uniform_walk``), the profile's rows outside [q_off,
+    q_off + q_len) set to NEG when those are given; exact int32, on
+    whatever device the inputs are on."""
     band = prof_t.shape[1] - t_idx.shape[1]
+    if q_off is not None:
+        prof_t = prof_t.clone()
+        prof_t[:, :q_off] = NEG
+        prof_t[:, q_off + q_len:] = NEG
     r = torch.arange(band, device=t_idx.device)
     return uniform_walk(t_idx, r[None, :] < band_len[:, None], prof_t, go, ge)
+
+
+def sweep_walk_cells(T: int, q_off: int, q_len: int, band_len) -> int:
+    """Cells the swipe_sweep kernel walks: per row and strip, the strip's
+    32 * R rows times its columns from max(0, strip start - band_len)."""
+    R, strips = sweep_shape(q_len)
+    bl = np.asarray(band_len, np.int64)
+    p0 = q_off + 32 * R * np.arange(strips)
+    cols = T - np.maximum(0, p0[None, :] - bl[:, None])
+    return int(32 * R * np.maximum(cols, 0).sum())
 
 
 def sweep_profile(q_let, q_bias, q_valid, matrix32):
@@ -832,8 +883,10 @@ class SwipeSweep:
     The targets are sorted by length and cut into length classes
     (``pad_band`` of the length), each class's letter block goes to the card
     once, and every query then sweeps the resident classes with one launch of
-    ``swipe_sweep`` each, the band qlen + C of the class.  Classes whose band
-    would pass ``MAX_UNIFORM_BAND`` take the host DP for that query.
+    ``swipe_sweep`` each, the band qlen + C of the class; the kernel walks
+    the query's rows [C, C + qlen) of that band.  Classes whose band would
+    pass ``MAX_UNIFORM_BAND`` take the host DP for that query (the output
+    does not depend on the cap).
     ``run`` returns res[nq][nt] = (score, subject_pos, query_pos) of the best
     cell, with the host DP's (0, 0, 0) for a score of 0.
     """
@@ -870,8 +923,9 @@ class SwipeSweep:
         return out
 
     def query_launches(self, query, bias, chunks):
-        """(chunk, band, band_len, prof_t) of each launch of one query; a
-        chunk whose band would pass MAX_UNIFORM_BAND is left out."""
+        """(chunk, band, band_len, prof_t) of each launch of one query (its
+        rows of the profile: [chunk.C, chunk.C + len(query))); a chunk
+        whose band would pass MAX_UNIFORM_BAND is left out."""
         qlen = len(query)
         q8 = torch.from_numpy(np.asarray(query, dtype=np.int8) & 31)
         b8 = (torch.from_numpy(np.asarray(bias, dtype=np.int8))
@@ -912,9 +966,10 @@ class SwipeSweep:
             done = set()
             for ch, band, bl, prof_t in self.query_launches(q, bias, chunks):
                 pending.append((qi, ch, kernel(ch.t_idx, bl, prof_t, self.go,
-                                               self.ge)))
+                                               self.ge, ch.C, len(q))))
                 dispatch_count += 1
-                dispatch_cells += len(ch.rows) * ch.T * band
+                dispatch_cells += sweep_walk_cells(ch.T, ch.C, len(q),
+                                                   ch.tl + len(q) - 1)
                 done.add(id(ch))
             for ch in chunks:  # bands past the kernel's cap: host DP
                 if id(ch) in done:

@@ -10,9 +10,9 @@ and the batch shares one profile ``profile_pad`` [T + band, 32] whose rows
 
 ``column_step`` is that recurrence for one column over [B, band]; the
 one-hot path here (``banded_swipe_uniform``) and ``uniform_walk``, the plain
-version of the uniform-band kernel (``csrc/uniform_swipe.cu``, both of its
-entry points: ``ops/swipe_uniform_device`` and ``ops/swipe_device``'s
-full-matrix sweep), walk their columns with it.
+version of the uniform-band kernel (``csrc/uniform_swipe.cu``,
+``ops/swipe_uniform_device``) and of the diagonal-band sweep
+(``csrc/swipe_sweep.cu``, ``ops/swipe_device``), walk their columns with it.
 """
 from __future__ import annotations
 

@@ -25,18 +25,17 @@ from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND, NEG,
                                                  uniform_walk)
 
 
-def _launcher(symbol: str):
+def _k4():
     from diamond_tpu_torch.ops import _cuda
 
-    return _cuda.launcher("uniform_swipe", symbol, "iipppiiiiipppp")
-
-
-def _k4():
-    return _launcher("uniform_swipe_mask_launch")
+    return _cuda.launcher("uniform_swipe", "uniform_swipe_mask_launch",
+                          "iipppiiiiipppp")
 
 
 def check_uniform(t_idx, rows, prof_t, rows_dtype, rows_name: str):
-    """Validate the inputs of either entry point; returns (B, T, band)."""
+    """Validate the inputs of the uniform-band kernel (rows: its band mask)
+    or of the diagonal-band sweep (rows: its band lengths); returns (B, T,
+    band)."""
     check_tensors(t_idx.device, ("t_idx", t_idx, torch.int8),
                   (rows_name, rows, rows_dtype), ("prof_t", prof_t, torch.int32))
     if t_idx.dim() != 2 or prof_t.dim() != 2 or prof_t.shape[0] != 32:
@@ -49,27 +48,6 @@ def check_uniform(t_idx, rows, prof_t, rows_dtype, rows_name: str):
         raise ValueError(f"band {band} outside 1..{MAX_UNIFORM_BAND}: such "
                          f"jobs take the host DP")
     return B, T, band
-
-
-def launch_uniform(symbol: str, t_idx, rows, prof_t, band: int, go: int,
-                   ge: int):
-    """One launch of an entry point of ``csrc/uniform_swipe.cu`` on the
-    inputs' card; returns its three int32 [B] outputs (zeros for T = 0)."""
-    dev = t_idx.device
-    B, T = t_idx.shape
-    out = [torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3)]
-    if B == 0 or T == 0:
-        return tuple(out)
-    R, threads = uniform_shape(band)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _launcher(symbol)(
-            R, threads, t_idx.data_ptr(), rows.data_ptr(), prof_t.data_ptr(),
-            B, T, band, int(go), int(ge), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
-    return tuple(out)
 
 
 def banded_swipe_uniform_cuda(t_idx, band_mask, prof_t, go: int, ge: int):
@@ -85,7 +63,7 @@ def banded_swipe_uniform_cuda(t_idx, band_mask, prof_t, go: int, ge: int):
     CUDA tensors launch the kernel (counted in
     ``banded_swipe_uniform_cuda.launches``); CPU tensors run
     ``banded_swipe_uniform_cuda_plain``."""
-    _, _, band = check_uniform(t_idx, band_mask, prof_t, torch.int8,
+    B, T, band = check_uniform(t_idx, band_mask, prof_t, torch.int8,
                                "band_mask")
     if band_mask.shape[1] != band:
         raise ValueError("band_mask must be [B, band] with band = "
@@ -96,11 +74,20 @@ def banded_swipe_uniform_cuda(t_idx, band_mask, prof_t, go: int, ge: int):
     if dev.type != "cuda":
         raise ValueError(f"banded_swipe_uniform_cuda runs on cuda or cpu, "
                          f"not {dev}")
-    out = launch_uniform("uniform_swipe_mask_launch", t_idx, band_mask, prof_t,
-                         band, go, ge)
-    if t_idx.numel():
-        banded_swipe_uniform_cuda.launches += 1
-    return out
+    out = [torch.zeros(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    if B == 0 or T == 0:
+        return tuple(out)
+    R, threads = uniform_shape(band)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        err = _k4()(R, threads, t_idx.data_ptr(), band_mask.data_ptr(),
+                    prof_t.data_ptr(), B, T, band, int(go), int(ge),
+                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"banded_swipe_uniform_cuda launch failed: CUDA "
+                           f"error {err}")
+    banded_swipe_uniform_cuda.launches += 1
+    return tuple(out)
 
 
 banded_swipe_uniform_cuda.launches = 0

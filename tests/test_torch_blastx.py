@@ -4,7 +4,8 @@ diamond_tpu's, in subprocesses.
 
 The port runs on the CPU, where its ``-F`` and ``--swipe`` routes go through
 the plain versions of the 3-frame kernel and the full-matrix sweep and must
-make dispatches; diamond_tpu runs its host DP under JAX on the CPU.  Inputs
+make dispatches (the 3-frame round fewer than one per read: a block's reads
+share its launches); diamond_tpu runs its host DP under JAX on the CPU.  Inputs
 are small synthetic read sets from chip_smoke.make_reads (FASTQ for the
 six-frame case) against chip_smoke.make_proteins(n_seqs=300).
 """
@@ -64,10 +65,12 @@ def inputs(tmp_path_factory):
     write_fasta(d / "q8.faa", prots[:8])
     write_fastq(d / "short.fq", make_reads(prots, 24, 300, 1200, seed=2))
     write_fasta(d / "short4.fna", make_reads(prots, 4, 300, 600, seed=3))
-    write_fasta(d / "long.fna", make_reads(prots, 6, 2000, 4000,
+    write_fasta(d / "long.fna", make_reads(prots, N_LONG, 2000, 4000,
                                            indels_per_kb=1.0, seed=1))
     return d
 
+
+N_LONG = 6  # reads of long.fna
 
 # case -> (argv, the dispatch count that must be > 0, second format); the
 # reference's pairwise writer (-f 0) fails on translated queries, so the
@@ -97,6 +100,8 @@ def test_port_matches_reference(case, fmt, inputs):
     counts = dict(kv.split("=") for kv in log.strip().splitlines()[-1].split())
     if kernel:
         assert int(counts[kernel]) > 0, counts
+    if kernel == "K3":  # the block's reads share launches (one per class)
+        assert int(counts[kernel]) < N_LONG, counts
 
 
 def test_blastx_pairwise_fails_as_reference(inputs):

@@ -25,10 +25,13 @@ ALLOWED = {
     "align/wave.py": ("comment on the lazy torch import", 5),
     "search/pipeline.py": ("device route builds the port's DeviceDP; "
                            "--mesh and stage 1/2 on the card raise; "
-                           "_can_fork reads no jax knob", 72),
-    "align/frameshift.py": ("_device_swipe3_scores calls the port's 3-frame "
-                            "kernel on the resolved device, with its own "
-                            "band cap", 51),
+                           "_can_fork reads no jax knob; -F extends the "
+                           "block's reads in one call", 86),
+    "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
+                            "only jobs scored by the port's 3-frame kernel "
+                            "on the resolved device in windows of reads "
+                            "with its own band cap, then finished (steps "
+                            "3-6) in order", 177),
     "align/swipe_all.py": ("_device_swipe_dispatch builds the port's "
                            "FullSweep on the resolved device; --mesh raises",
                            17),

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (``pytest -m gpu tests/test_torch_*.py``).
 
-The banded-SWIPE kernel (K1), the 3-frame kernel (K3), the full-matrix
-sweep (K2), the uniform-band kernel (K4), the diagonal-band sweep (K5) and
-the stage-2 filter (K6) against their plain PyTorch versions on the same card
+The banded-SWIPE kernel (K1), the 3-frame kernel (K3, read by read and
+many reads in one batch), the full-matrix sweep (K2), the uniform-band
+kernel (K4), the diagonal-band sweep (K5, also on queries above one strip,
+positive biases, tied bests, score-0 rows and pad cells that score) and the
+stage-2 filter (K6) against their plain PyTorch versions on the same card
 tensors and against the host DP or a numpy oracle; exact integer equality.
 Skips without a card: a CUDA kernel has no CPU mode.
 """
@@ -84,6 +86,36 @@ def test_swipe3_kernel_matches_plain_and_native_on_gpu():
 
 
 @pytest.mark.gpu
+def test_swipe3_kernel_batched_across_reads_on_gpu():
+    """Many reads' jobs in one swipe3_scores call (every band class, one
+    launch each) equal the plain version and the reads scored one by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import swipe3_device as s3
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    go, ge, fs = m.gap_open + m.gap_extend, m.gap_extend, 15
+    reads = _smoke().swipe3_jobs(seed=17, n_queries=12)
+    strands, jobs, one = [], [], []
+    for st, jb in reads:
+        jobs += [(len(strands) + s, t, d0, d1) for s, t, d0, d1 in jb]
+        strands += st
+        one.append(s3.swipe3_scores(st, jb, m.matrix32, go, ge, fs, "cuda"))
+    classes = {s3.offsets_per_lane(d1 - d0) for _, _, d0, d1 in jobs}
+    assert classes == set(s3.OFFSETS_PER_LANE)
+    launches = s3.banded_swipe3.launches
+    kb, kc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda")
+    assert s3.banded_swipe3.launches == launches + len(classes)
+    pb, pc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda",
+                              kernel=s3.banded_swipe3_plain)
+    np.testing.assert_array_equal(kb, pb)
+    np.testing.assert_array_equal(kc, pc)
+    np.testing.assert_array_equal(kb, np.concatenate([b for b, _ in one]))
+    np.testing.assert_array_equal(kc, np.concatenate([c for _, c in one]))
+
+
+@pytest.mark.gpu
 def test_full_swipe_kernel_matches_plain_and_host_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -160,6 +192,49 @@ def test_swipe_sweep_kernel_matches_plain_and_host_on_gpu():
                                               for t in targets],
                                     m.matrix32, m.gap_open, m.gap_extend)
         assert row == [tuple(r) for r in ref]
+
+
+@pytest.mark.gpu
+def test_swipe_sweep_kernel_edges_on_gpu():
+    """K5 walks only the query's rows: queries above one strip, positive
+    biases, tied bests and score-0 rows through SwipeSweep equal the plain
+    version and the full-band host DP; on a profile whose pad cells score
+    (and a dead row) the kernel equals the plain version's whole band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    smoke = _smoke()
+    queries, targets = smoke.sweep_edges(seed=18)
+    assert max(len(q) for q, _ in queries) > sd.STRIP_ROWS
+    sweep = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
+    res = sweep.run(queries, targets)
+    assert sweep.run(queries, targets, kernel=sd.swipe_sweep_plain) == res
+    zeros = 0
+    for (q, bias), row in zip(queries, res):
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        assert row == [tuple(r) for r in ref]
+        zeros += sum(r[0] == 0 for r in row)
+    assert zeros > 0
+    # the segment three times against the segment: three tied alignments,
+    # the highest query row's is reported
+    assert res[2][1][0] == res[3][1][0] and res[2][1][2] > res[3][1][2]
+    top = 0
+    for t_idx, bl, prof_t, q_off, q_len in smoke.sweep_pad_case(
+            sweep, targets, seed=19):
+        got = sd.swipe_sweep(t_idx, bl, prof_t, go, ge, q_off, q_len)
+        want = sd.swipe_sweep_plain(t_idx, bl, prof_t, go, ge)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int(got[0][0]) == 0  # the dead row
+        top = max(top, int(got[0].max()))
+    assert top > 0
 
 
 @pytest.mark.gpu

@@ -145,3 +145,85 @@ def test_plain_rejects_bad_inputs():
         s3.banded_swipe3(x["t_cat"], x["q_cat"], x["jobs"][:, :4].contiguous(),
                          x["reqs"], m, 12, 1, FS, 1)
     assert s3.banded_swipe3.launches == 0
+
+
+def _reads(seed, n_reads):
+    """Seeded reads for the cross-read batch: per read both strands' frame
+    translations (unequal lengths) and 3-9 jobs per strand in bands of
+    1-100 offsets, as _batches builds them."""
+    out = []
+    for k in range(n_reads):
+        strands, jobs = [], []
+        for s, (q_frames, _qlens, sj) in enumerate(_batches(seed + k, 2)):
+            strands.append(q_frames)
+            jobs += [(s, t, d0, d1) for t, d0, d1 in sj]
+        out.append((strands, jobs))
+    return out
+
+
+def test_cross_read_windows_match_pallas_and_host(blosum, monkeypatch):
+    """The score-only jobs of many reads, scored a window at a time (as
+    align/frameshift batches a block's reads: one swipe3_scores call per
+    window, one launch per band class), equal each read's own results from
+    diamond_tpu's banded_swipe3_pallas in interpret mode (mapped as its
+    device route maps them, and carried across by from_pallas_swipe3_batch
+    into the plain version) and from the host DP, exactly."""
+    from types import SimpleNamespace
+
+    from diamond_tpu.ops.swipe3 import banded_3frame_swipe_np
+    from diamond_tpu_torch.align import frameshift as fs
+
+    go, ge = blosum.gap_open + blosum.gap_extend, blosum.gap_extend
+    reads = _reads(31, 6)
+    items = []
+    for strands, jobs in reads:
+        frames = {s * 3 + f: (strands[s][f], None)
+                  for s in range(2) for f in range(3)}
+        work = [(None, t, len(t), s, d0, d1) for s, t, d0, d1 in jobs]
+        items.append((work, frames))
+    total = sum(fs._work_letters(SimpleNamespace(work=w)) for w, _ in items)
+    monkeypatch.setattr(fs, "WINDOW_LETTERS", total // 3)
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
+    monkeypatch.delenv("DIAMOND_TPU_TORCH_DEVICE_DP", raising=False)
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", "0")
+    mat = ScoreMatrix("BLOSUM62", frame_shift=FS)
+    cfg = SimpleNamespace(matrix=mat)
+    s3.dispatch_count = 0
+    got, windows = [], 0
+    for window in fs._windows(items, lambda x: fs._work_letters(
+            SimpleNamespace(work=x[0]))):
+        got += fs._device_swipe3_scores(window, cfg)
+        windows += 1
+    assert 1 < windows < len(reads)
+    assert s3.dispatch_count < len(reads) * 2  # launches per window, not read
+    m32 = _m32(blosum)
+    n_pos = 0
+    for (strands, jobs), res in zip(reads, got):
+        assert res is not None and len(res) == len(jobs)
+        for s in range(2):
+            idx = [k for k, j in enumerate(jobs) if j[0] == s]
+            sj = [jobs[k][1:] for k in idx]
+            t_idx, bmask, prof, band_q, meta = prepare_swipe3_batch(
+                strands[s], blosum.matrix32, sj, tile_b=8)
+            pb, pc = (np.asarray(o) for o in banded_swipe3_pallas(
+                t_idx, bmask, prof, go, ge, FS, band_q, tile_b=8,
+                interpret=True))
+            packed, K = s3.from_pallas_swipe3_batch(
+                np.asarray(t_idx), np.asarray(bmask), np.asarray(prof),
+                blosum.matrix32)
+            x = {k: torch.from_numpy(v) for k, v in packed.items()}
+            cb, cc = s3.banded_swipe3(x["t_cat"], x["q_cat"], x["jobs"],
+                                      x["reqs"], m32, go, ge, FS, K)
+            np.testing.assert_array_equal(cb.numpy(), pb)
+            np.testing.assert_array_equal(cc.numpy(), pc)
+            for n, k in enumerate(idx):
+                want = (int(pb[n]), int(pc[n]) - meta["shifts"][n])
+                if want[0] <= 0:
+                    want = (0, -1)
+                assert res[k] == want, (k, s)
+                r = banded_3frame_swipe_np(strands[s], s, 0, *sj[n],
+                                           blosum.matrix32, go, ge, FS,
+                                           traceback=False)
+                assert res[k] == ((r.score, r.max_col) if r else (0, -1))
+                n_pos += want[0] > 0
+    assert n_pos > 20

@@ -110,3 +110,29 @@ def test_swipe_sweep_host_route_past_cap(jax_run, monkeypatch):
     sd.reset_dispatch_stats()
     assert sweep.run(queries, targets) == whole
     assert 0 < sd.dispatch_count < len(queries) * len(sweep.chunks(targets))
+
+
+def test_swipe_sweep_query_rows(jax_run):
+    """The card's kernel walks only the query's rows [C, C + qlen) of each
+    launch's band; the plain version given those rows (the rest of the
+    profile set to NEG) equals the whole band on SwipeSweep's profiles, and
+    rows that leave the band at some column are refused."""
+    m, queries, targets, _, _ = jax_run
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    sweep = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cpu")
+    chunks = sweep.chunks(targets)
+    n = 0
+    for q, bias in queries:
+        for ch, band, bl, prof_t in sweep.query_launches(q, bias, chunks):
+            whole = sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge)
+            rows = sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge, ch.C, len(q))
+            for a, b in zip(whole, rows):
+                assert torch.equal(a, b)
+            assert band == ch.C + len(q)
+            n += 1
+            with pytest.raises(ValueError):
+                sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge, ch.C - 1, len(q))
+            with pytest.raises(ValueError):
+                sd.swipe_sweep(ch.t_idx, bl, prof_t, go, ge, ch.C, len(q) + 1)
+    assert n == len(queries) * len(chunks)
+    assert sd.swipe_sweep.launches == 0
