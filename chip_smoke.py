@@ -12,18 +12,23 @@ Phases; each one fails the run on error:
      and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
-     (K1) on requests in every band class; the 3-frame DP (K3) on jobs over
-     both strands, frames of unequal length, d0 < 0, band 1, targets
-     shorter than the band, read by read and all reads in one batch; the
+     (K1) on requests in every band class (rows per lane 1..16), counted
+     per class; the 3-frame DP (K3) on jobs over both strands, frames of
+     unequal length, d0 < 0, band 1, targets shorter than the band, read
+     by read against the native host DP and all reads in one batch
+     against the plain version and the reads one by one; the
      full-matrix sweep (K2) against the
      full-band host DP, with and without bias, queries above one strip; the
      uniform-band DP (K4) on bands of 16 to 8192 rows, with and without
      bias, d0 < 0, targets shorter than the band, also through the direct
-     DP route; the diagonal-band sweep (K5, SwipeSweep) against the
-     full-band host DP, with queries above one strip, positive biases, tied
-     bests and score-0 rows, and on a profile whose pad cells score (and a
-     dead row) against its plain version; the stage-2 filter (K6) at the benchmark's shape and
-     on pregathered pairs of a padded count, against a numpy oracle;
+     DP route, and at its own interface on bands of no power of two, masks
+     that are no prefix, targets of up to 1,300 letters, and both paths (a
+     warp per target for bands up to 512; a CTA per target above); the
+     diagonal-band sweep (K5, SwipeSweep) against the full-band host DP,
+     with queries above one strip, positive biases, tied bests and score-0
+     rows, and on a profile whose pad cells score (and a dead row) against
+     its plain version; the stage-2 filter (K6) at the benchmark's shape
+     and on pregathered pairs of a padded count, against a numpy oracle;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters);
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
@@ -41,8 +46,10 @@ Phases; each one fails the run on error:
      paths 4-9 report the card's kernel busy time (CUDA events around every
      launch) and its idle share;
  10. timing: each kernel, its plain version and the bound on the largest
-     batch of its path (CUDA events); K3 also on the largest one-read batch
-     of the long-reads run.
+     batch of its path (CUDA events); K1 with its band classes and the
+     cells it walks against the exact band cells; K3 also on the largest
+     one-read batch of the long-reads run; K4 also on the benchmark's
+     full-matrix row (band 1,024, the CTA path).
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -187,25 +194,32 @@ def write_fastq(path, recs):
             f.write(f"@{name}\n{s}\n+\n{qual}\n")
 
 
+# one band in each of K1's classes (rows per lane 1..16) and at the edges
+DP_BANDS = (1, 17, 32, 33, 64, 65, 97, 100, 128, 129, 161, 193, 200, 225,
+            256, 257, 289, 300, 321, 353, 385, 417, 449, 481, 500, 512)
+
+
 def dp_requests(seed: int, n_queries: int):
-    """Seeded DeviceDP requests in every band class up to 512, targets up to
-    ~4000 letters: bias on every other query, d0 < 0, band 1, targets
-    shorter than the band, and jobs with no cell in the query."""
+    """Seeded DeviceDP requests, targets up to ~4000 letters: each query
+    takes half of DP_BANDS (and a few more jobs), so every four queries
+    cover every band class up to 512 with and without bias (bias on every
+    other query); d0 < 0 (down to -(t_len - 1)), band 1, targets shorter
+    than the band, and jobs with no cell in the query."""
     rng = np.random.default_rng(seed)
     reqs = []
-    bands = (1, 17, 32, 33, 64, 100, 128, 200, 256, 300, 512)
+    half = len(DP_BANDS) // 2
     for r in range(n_queries):
         qlen = int(rng.integers(20, 4000))
         q = rng.integers(0, 20, qlen).astype(np.int8)
         bias = rng.integers(-4, 5, qlen).astype(np.int32) if r % 2 else None
         jobs = []
-        for k in range(int(rng.integers(6, 30))):
+        for k in range(half + int(rng.integers(0, 4))):
             tl = int(rng.integers(5, 4000))
             t = rng.integers(0, 20, tl).astype(np.int8)
             n = max(min(qlen - 1, tl - 2, 40), 0)
             t[2:2 + n] = q[1:1 + n]
-            band = bands[k % len(bands)]
-            d0 = int(rng.integers(-tl, qlen))
+            band = DP_BANDS[(k + half * (r // 2)) % len(DP_BANDS)]
+            d0 = int(rng.integers(-tl + 1, qlen))
             jobs.append((t, d0, d0 + band))
         jobs.append((t[:7], -3, 60))       # target shorter than the band
         jobs.append((t[:5], -50, -40))     # no cell in the query
@@ -318,6 +332,53 @@ def uniform_batches(seed: int, bands=UNIFORM_BANDS):
             jobs.append((t, d0, d0 + width))
         jobs += [(t[:7], -3, band - 3), (t[:5], -50, -40)]
         out.append((q, bias, jobs))
+    return out
+
+
+# (band, longest target, targets, holes in the band mask): K4's warp path
+# (bands <= 512, the last two with longer targets) and CTA path (513,
+# 1024), bands of no power of two
+UNIFORM_DIRECT = ((16, 300, 40, False), (128, 480, 64, True),
+                  (200, 300, 16, True), (500, 300, 16, False),
+                  (512, 200, 8, True), (513, 200, 8, False),
+                  (1024, 200, 4, True), (128, 1200, 16, False),
+                  (500, 1300, 8, True))
+
+
+def uniform_direct_cases(seed: int, cases=UNIFORM_DIRECT):
+    """Seeded K4 inputs at the kernel's own interface, band widths as given
+    (no padding to a power of two): per case a query, targets of up to the
+    given length with a planted stretch on a band diagonal, d0 < 0, packed
+    by pack_uniform_batch and cut to the band; ``holes`` clears every
+    seventh band row from row 3 (a mask that is no prefix).  Returns
+    [(band, t_idx int8 [B, T], band_mask int8 [B, band], prof_t int32
+    [32, T + band])] as numpy arrays."""
+    from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m32 = ScoreMatrix("BLOSUM62").matrix32
+    rng = np.random.default_rng(seed)
+    out = []
+    for band, tmax, n, holes in cases:
+        qlen = max(band, tmax) // 2 + 60
+        q = rng.integers(0, 20, qlen).astype(np.int8)
+        jobs = []
+        for x in range(n):
+            tl = int(rng.integers(tmax // 2, tmax + 1))
+            t = rng.integers(0, 20, tl).astype(np.int8)
+            d0 = int(rng.integers(-min(tl, band) + 1, qlen // 4 + 1))
+            width = band if x == 0 else int(rng.integers(1, band + 1))
+            d = d0 + width // 2
+            j = np.arange(max(0, -d), min(tl, qlen - d))[:80]
+            t[j] = q[j + d]
+            jobs.append((t, d0, d0 + width))
+        pk, _ = sud.pack_uniform_batch(q, None, m32, jobs)
+        T = pk["t_idx"].shape[1]
+        bm = np.ascontiguousarray(pk["band_mask"][:, :band])
+        if holes:
+            bm[:, 3::7] = 0
+        out.append((band, pk["t_idx"], bm,
+                    np.ascontiguousarray(pk["prof_t"][:, :T + band])))
     return out
 
 
@@ -463,8 +524,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Print a phase header with the seconds since the module loaded."""
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 class Patched:
@@ -570,7 +635,7 @@ def main(argv=None):
     print(f"native host library: {time.perf_counter() - t0:.2f} s")
 
     # -- 3. parity ----------------------------------------------------------
-    phase("kernel parity")
+    phase("kernel parity: K1")
     m = ScoreMatrix("BLOSUM62")
     go, ge, fs = m.gap_open + m.gap_extend, m.gap_extend, 15
     m32 = torch.tensor(m.matrix32, dtype=torch.int32, device="cuda")
@@ -586,34 +651,36 @@ def main(argv=None):
 
     # K1: the banded extension DP
     dp = sd.DeviceDP(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
-    reqs = dp_requests(args.seed + 1, 48)
+    reqs = dp_requests(args.seed + 1, 24)
     p = sd.pack_requests(reqs, "cuda")
-    raw_mis = diff("k1", dp.launch(p),
-                   dp.launch(p, kernel=sd.banded_swipe_multi_plain))
-    host_mis = 0
-    for (q, bias, jobs), res in zip(reqs, dp.run_many(reqs)):
-        ref = banded_swipe_batch_np(q, bias, jobs, m.matrix32, m.gap_open,
-                                    m.gap_extend)
-        host_mis += sum(a != b for a, b in zip(res, ref))
-    classes = [R * 32 for R, _, _ in p.classes]
-    print(f"K1 parity: {p.n_jobs} jobs, band classes {classes}, kernel vs "
-          f"plain mismatches {raw_mis}, kernel vs host DP mismatches {host_mis}")
-    if raw_mis or host_mis:
+    got = dp.launch(p)
+    want = dp.launch(p, kernel=sd.banded_swipe_multi_plain)
+    torch.cuda.synchronize()
+    res = dp.run_many(reqs)
+    refs = [banded_swipe_batch_np(q, bias, jobs, m.matrix32, m.gap_open,
+                                  m.gap_extend) for q, bias, jobs in reqs]
+    mis_by_class = []
+    for R, lo, hi in p.classes:  # per band class: kernel vs plain, vs host
+        raw = diff("k1", [g[lo:hi] for g in got], [w[lo:hi] for w in want])
+        hm = sum(res[r][k] != refs[r][k] for r, k in p.order[lo:hi])
+        mis_by_class.append((32 * R, hi - lo, raw, hm))
+    print(f"K1 parity: {p.n_jobs} jobs; per band class (rows, jobs, kernel "
+          f"vs plain mismatches, kernel vs host DP mismatches): "
+          f"{mis_by_class}")
+    if [R for R, _, _ in p.classes] != list(sd.ROWS_PER_LANE):
+        raise RuntimeError("K1 parity did not cover every band class")
+    if any(raw or hm for _, _, raw, hm in mis_by_class):
         raise RuntimeError("K1 disagrees with its references")
 
     # K3: the 3-frame DP of blastx -F
-    k3_jobs = k3_mis = k3_host_mis = 0
+    phase("kernel parity: K3")
+    k3_jobs = k3_host_mis = 0
     k3_classes = set()
     k3_reads = swipe3_jobs(args.seed + 2, 8)
     per_read = []
     for strands, jobs in k3_reads:
         kb, kc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda")
         per_read.append((kb, kc))
-        pb, pc = s3.swipe3_scores(strands, jobs, m.matrix32, go, ge, fs, "cuda",
-                                  kernel=s3.banded_swipe3_plain)
-        k3_mis += int((kb != pb).sum() + (kc != pc).sum())
-        max_err["k3"] = max(max_err.get("k3", 0), int(np.abs(kb - pb).max()),
-                            int(np.abs(kc - pc).max()))
         for k, (s, t, d0, d1) in enumerate(jobs):
             k3_classes.add(32 * s3.offsets_per_lane(d1 - d0))
             fwd = native.banded_3frame_forward_native(
@@ -623,7 +690,9 @@ def main(argv=None):
                 want = (0, -1)
             k3_host_mis += (int(kb[k]), int(kc[k])) != want
         k3_jobs += len(jobs)
-    # every read's jobs in one batch, as the -F pipeline sends a window
+    # every read's jobs in one batch, as the -F pipeline sends a window; the
+    # plain version runs once, on the batch, which must equal the reads
+    # scored one by one
     all_strands, all_jobs = [], []
     for strands, jobs in k3_reads:
         all_jobs += [(len(all_strands) + s, t, d0, d1) for s, t, d0, d1 in jobs]
@@ -634,18 +703,21 @@ def main(argv=None):
     k3_batch_launches = s3.banded_swipe3.launches - launches
     pb, pc = s3.swipe3_scores(all_strands, all_jobs, m.matrix32, go, ge, fs,
                               "cuda", kernel=s3.banded_swipe3_plain)
-    k3_batch_mis = int((bb != pb).sum() + (bc != pc).sum())
-    k3_batch_mis += int((bb != np.concatenate([b for b, _ in per_read])).sum()
-                        + (bc != np.concatenate([c for _, c in per_read])).sum())
+    k3_mis = int((bb != pb).sum() + (bc != pc).sum())
+    max_err["k3"] = max(int(np.abs(bb - pb).max()), int(np.abs(bc - pc).max()))
+    k3_batch_mis = int(
+        (bb != np.concatenate([b for b, _ in per_read])).sum()
+        + (bc != np.concatenate([c for _, c in per_read])).sum())
     print(f"K3 parity: {k3_jobs} jobs over both strands, band classes "
-          f"{sorted(k3_classes)}, kernel vs plain mismatches {k3_mis}, kernel "
-          f"vs native host DP mismatches {k3_host_mis}; all {len(k3_reads)} "
-          f"reads in one batch ({k3_batch_launches} launches) vs plain and vs "
-          f"read by read: mismatches {k3_batch_mis}")
+          f"{sorted(k3_classes)}, kernel read by read vs native host DP "
+          f"mismatches {k3_host_mis}; all {len(k3_reads)} reads in one batch "
+          f"({k3_batch_launches} launches): kernel vs plain mismatches "
+          f"{k3_mis}, vs read by read {k3_batch_mis}")
     if k3_mis or k3_host_mis or k3_batch_mis:
         raise RuntimeError("K3 disagrees with its references")
 
     # K2: the full-matrix sweep of --swipe
+    phase("kernel parity: K2")
     queries, targets = sweep_inputs(args.seed + 3)
     tb = Block.from_sequences(targets, [f"t{i}" for i in range(len(targets))])
     t_order = np.arange(len(targets))
@@ -696,6 +768,7 @@ def main(argv=None):
                  int(mr[k])) for k in range(n)]
 
     # K4: the uniform-band DP of the benchmark and the direct DP route
+    phase("kernel parity: K4")
     k4_jobs = k4_mis = k4_host_mis = 0
     k4_bands = []
     for q, bias, jobs in uniform_batches(args.seed + 4):
@@ -711,12 +784,27 @@ def main(argv=None):
             pext._device_dp_scores(q, bias, jobs, m), ref))
         k4_bands.append(kb[3]["band"])
         k4_jobs += len(jobs)
-    print(f"K4 parity: {k4_jobs} jobs, bands {k4_bands}, kernel vs plain "
-          f"mismatches {k4_mis}, kernel vs host DP mismatches {k4_host_mis}")
+    # at the kernel's interface: bands of no power of two, masks that are
+    # no prefix, both paths
+    k4_direct = []
+    for band, *arrs in uniform_direct_cases(args.seed + 12):
+        t_idx, bm, prof = (torch.from_numpy(a).cuda() for a in arrs)
+        R, threads = sud.uniform_shape(band)
+        k4_direct.append((band, tuple(t_idx.shape), 4 * prof.numel(),
+                          "warp" if threads == 32 else "cta"))
+        k4_mis += diff("k4", sud.banded_swipe_uniform_cuda(t_idx, bm, prof,
+                                                           go, ge),
+                       sud.banded_swipe_uniform_cuda_plain(t_idx, bm, prof,
+                                                           go, ge))
+    print(f"K4 parity: {k4_jobs} jobs, bands {k4_bands}, and at the "
+          f"kernel's interface (band, [B, T], profile bytes, path) "
+          f"{k4_direct}; kernel vs plain mismatches {k4_mis}, kernel vs "
+          f"host DP mismatches {k4_host_mis}")
     if k4_mis or k4_host_mis:
         raise RuntimeError("K4 disagrees with its references")
 
     # K5: the diagonal-band full-matrix sweep (SwipeSweep)
+    phase("kernel parity: K5")
     ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
     k5_mis = k5_launches = k5_host_mis = 0
     k5_cases = []
@@ -753,6 +841,7 @@ def main(argv=None):
     if k5_mis or k5_host_mis:
         raise RuntimeError("K5 disagrees with its references")
 
+    phase("kernel parity: K6")
     # K6: the stage-2 filter, at the benchmark's shape and on pregathered
     # pairs whose count is no multiple of a block
     m2 = m32[:32, :32].contiguous()
@@ -1073,8 +1162,15 @@ def main(argv=None):
     n_bytes = (p.t_cat.numel() + p.q_cat.numel() + p.bias_cat.numel()
                + 4 * (p.jobs.numel() + p.reqs.numel() + 32 * 32)
                + 3 * 4 * p.n_jobs)
-    print(f"K1 batch: {p.n_jobs} jobs in {len(captured['k1'][1])} requests, "
-          f"classes {[(R * 32, hi - lo) for R, lo, hi in p.classes]}")
+    t_len1 = jobs[:, 1]
+    pow2 = int((t_len1 * 32 * np.array(
+        [1 << (sd.rows_per_lane(int(b)) - 1).bit_length()
+         for b in jobs[:, 3]])).sum())
+    print(f"K1 batch: {p.n_jobs} jobs in {len(captured['k1'][1])} requests; "
+          f"(band class rows, jobs): "
+          f"{[(R * 32, hi - lo) for R, lo, hi in p.classes]}; cells walked "
+          f"{p.walk_cells} (power-of-two classes would walk {pow2}) for "
+          f"{cells} exact band cells")
     rows.append(("k1", time_kernel(
         "k1", lambda: per_class(sd.banded_swipe_multi),
         lambda: per_class(sd.banded_swipe_multi_plain), cells, K1_OPS,
@@ -1169,13 +1265,35 @@ def main(argv=None):
                            np.array([d1 - d0 for _, d0, d1 in jobs4])).sum())
     n_bytes = sum(v.nbytes for v in pk4.values()) + 3 * 4 * len(jobs4)
     print(f"K4 batch: {len(jobs4)} targets of {BENCH['T']} x query of "
-          f"{len(q4)}, band {band4} (the benchmark's first row)")
+          f"{len(q4)}, band {band4}, shape {sud.uniform_shape(band4)} (the "
+          f"benchmark's first row)")
     rows.append(("k4", time_kernel(
         "k4", lambda: sud.banded_swipe_uniform_cuda(
             x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
         lambda: sud.banded_swipe_uniform_cuda_plain(
             x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
         cells, K45_OPS, K45_NOTE, n_bytes, 20)))
+
+    # K4 on the benchmark's full-matrix row (64 targets of 256 x the query,
+    # band 1,024: the CTA path)
+    t4 = BENCH["T_full"]
+    jobs4f = [(rng4.integers(0, 20, t4).astype(np.int8), -(t4 - 1), len(q4))
+              for _ in range(BENCH["n_full"])]
+    pk4f, meta4f = sud.pack_uniform_batch(q4, None, m.matrix32, jobs4f)
+    x4f = {k: torch.from_numpy(v).cuda() for k, v in pk4f.items()}
+    print(f"K4 batch: {len(jobs4f)} targets of {t4} x query of {len(q4)}, "
+          f"band {meta4f['band']}, shape {sud.uniform_shape(meta4f['band'])} "
+          f"(the benchmark's full-matrix row)")
+    k4_full = time_kernel(
+        "k4", lambda: sud.banded_swipe_uniform_cuda(
+            x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge),
+        lambda: sud.banded_swipe_uniform_cuda_plain(
+            x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge),
+        len(q4) * t4 * len(jobs4f), K45_OPS, K45_NOTE,
+        sum(v.nbytes for v in pk4f.values()) + 3 * 4 * len(jobs4f), 20)
+    print(f"K4 full-matrix row: kernel {k4_full[0]:.4f} ms, bound "
+          f"{k4_full[2]:.5f} ms ({k4_full[3]}), {k4_full[0] / k4_full[2]:.1f}x; "
+          f"{kind}, {name_power}")
 
     # K5 on the largest launch of the SwipeSweep run
     launches5 = [(len(q), L) for q, _ in queries5

@@ -10,24 +10,29 @@
 // column's ties.
 //
 // What bounds it on the card: int32 ALU work.  The recurrence needs 12
-// int32 max/add operations per cell (the lazy-F scan below spends a few
-// more); the whole DP state (H and E for one column of the band) lives in
-// registers, and each column reads one target letter per job, so
-// device-memory traffic is a few bytes per column against band x 12
-// operations.  Tensor cores do not apply (max-plus, not
-// multiply-add).  What the design does about it:
+// int32 max/add operations per cell; the whole DP state (H and E for one
+// column of the band) lives in registers, and each column reads one target
+// letter per job, so device-memory traffic is a few bytes per column
+// against band x 12 operations.  Tensor cores do not apply (max-plus, not
+// multiply-add).  A job's columns form one serial chain.  What the design
+// does about it:
 //   - one warp per job; lane l holds band rows [l*R, (l+1)*R) in
-//     registers, R a template parameter (one launch per band class:
-//     R = 1/2/4/8/16 for band <= 32/64/128/256/512), so a job's columns
-//     run without touching memory except for one letter;
+//     registers, R = ceil(band / 32) a template parameter (one launch per
+//     band class, every R in 1..16), so a band of 129 walks 160 rows, not
+//     the 256 of a power-of-two class;
+//   - the column step after the score is warp_band.cuh's, shared with the
+//     uniform-band kernel: a lazy F (one carry from the previous lane, the
+//     5-step warp scan only when a lane's gap rose), DPX max-plus steps,
+//     the E row shift by one __shfl_down_sync, per-lane best tracking with
+//     three reductions at the end;
 //   - the query window slides one row per column through registers and a
-//     __shfl_down_sync, the lazy-F prefix max is an in-lane scan plus a
-//     5-step __shfl_up_sync scan, the E row shift is one __shfl_down_sync;
+//     __shfl_down_sync; target letters and packed query positions come 32
+//     columns at a time, one per lane, loaded one block of 32 columns
+//     ahead, and reach the warp by __shfl_sync: no device-memory load sits
+//     on the column's chain;
 //   - the score lookup reads the 32x32 matrix, stored transposed in shared
 //     memory (4 KB): for one target letter the 32 lanes read one row
 //     indexed by their query letters, which falls in distinct banks;
-//   - the column maximum is one __reduce_max_sync; its row is only found
-//     when the best score rises;
 //   - jobs are ordered longest first by the caller, so long warps start
 //     first and short ones fill in behind them.
 // The kernel allocates nothing, does not synchronise, and launches on the
@@ -35,6 +40,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp_band.cuh"
 
 namespace {
 
@@ -82,131 +89,95 @@ banded_swipe_multi_kernel(const int8_t* __restrict__ t_cat,
   const int r0 = lane * R;
 
   int H[R], E[R], P[R];
-  bool inb[R];
+  unsigned inb = 0;  // bit k: row r0 + k lies in the band
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     H[k] = 0;
     E[k] = 0;
-    inb[k] = r0 + k < band;
+    if (r0 + k < band) inb |= 1u << k;
     P[k] = load_q(q, qb, q_len, d0 + r0 + k);  // column 0: i = d0 + r
   }
-  int best = 0, max_col = 0, max_row = 0;
-  int tword = 0;
+  // prefetch, one lane per column: the target letter of column j and the
+  // query position that enters the window after column j (d0 + j + 32R)
+  int tnext = lane < t_len ? (int(t[lane]) & 31) : 0;
+  int qnext = load_q(q, qb, q_len, d0 + lane + 32 * R);
+  int tword = 0, qword = 0;
+  int lb = 0, lc = 0, lr = 0;
   for (int j = 0; j < t_len; ++j) {
-    if ((j & 31) == 0) {  // 32 target letters, one per lane
-      const int jj = j + lane;
-      tword = jj < t_len ? (int(t[jj]) & 31) : 0;
+    if ((j & 31) == 0) {  // take this block's words, load the next block's
+      tword = tnext;
+      qword = qnext;
+      const int jj = j + 32 + lane;
+      tnext = jj < t_len ? (int(t[jj]) & 31) : 0;
+      qnext = load_q(q, qb, q_len, d0 + jj + 32 * R);
     }
     const int32_t* mrow = Mt + 32 * __shfl_sync(FULL, tword, j & 31);
 
-    // cur0 = max(H + s, E, 0); in-lane inclusive prefix max of
-    // g = cur0 - go + r * ge
-    int cur0[R], g[R];
-    bool valid[R];
-    int run = NEG;
+    int s[R];
+    unsigned valid = 0;
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-      valid[k] = inb[k] && P[k] != INVALID;
-      const int s = valid[k] ? mrow[P[k] & 31] + (P[k] >> 5) : NEG;
-      cur0[k] = max(max(H[k] + s, E[k]), 0);
-      run = max(run, cur0[k] - go + (r0 + k) * ge);
-      g[k] = run;
+      const bool v = ((inb >> k) & 1u) && P[k] != INVALID;
+      if (v) valid |= 1u << k;
+      s[k] = v ? mrow[P[k] & 31] + (P[k] >> 5) : NEG;
     }
-    // warp scan of the lane totals -> exclusive prefix for this lane
-    int incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl = max(incl, o);
-    }
-    int excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = NEG;
-    // F[r] = max(prefix max - r * ge, 0), used one row down
-    int F[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      F[k] = max(max(g[k], excl) - (r0 + k) * ge, 0);
-    int f_in = __shfl_up_sync(FULL, F[R - 1], 1);
-    if (lane == 0) f_in = 0;
-
-    int lmax = 0;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int fs = k == 0 ? f_in : F[k - 1];
-      H[k] = valid[k] ? max(cur0[k], fs) : 0;
-      lmax = max(lmax, H[k]);
-    }
-    const int cbest = __reduce_max_sync(FULL, lmax);
-    if (cbest > best) {  // warp-uniform
-      int lrow = -1;
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        if (H[k] == cbest) lrow = r0 + k;  // highest row of the tie
-      max_row = __reduce_max_sync(FULL, lrow);
-      best = cbest;
-      max_col = j;
-    }
-
-    // E for the next column: E_out of the row above (same query index)
-    int Eo[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) Eo[k] = max(max(E[k] - ge, H[k] - go), 0);
-    int e_in = __shfl_down_sync(FULL, Eo[0], 1);
-    if (lane == 31) e_in = 0;
-#pragma unroll
-    for (int k = 0; k < R - 1; ++k) E[k] = Eo[k + 1];
-    E[R - 1] = e_in;
+    warp_band::column<R>(H, E, s, valid, lane, r0, j, go, ge, lb, lc, lr);
 
     // slide the query window one row: row r now holds i = j + 1 + d0 + r
     int p_in = __shfl_down_sync(FULL, P[0], 1);
-    if (lane == 31) p_in = load_q(q, qb, q_len, j + d0 + 32 * R);
+    const int p_new = __shfl_sync(FULL, qword, j & 31);
+    if (lane == 31) p_in = p_new;
 #pragma unroll
     for (int k = 0; k < R - 1; ++k) P[k] = P[k + 1];
     P[R - 1] = p_in;
   }
+  const warp_band::Best res = warp_band::band_result(lb, lc, lr);
   if (lane == 0) {
-    best_out[job] = best;
-    col_out[job] = max_col;
-    row_out[job] = max_row;
+    best_out[job] = res.best;
+    col_out[job] = res.col;
+    row_out[job] = res.row;
   }
 }
 
 template <int R>
-void launch(const int8_t* t_cat, const int8_t* q_cat, const int8_t* bias_cat,
-            const int32_t* jobs, const int32_t* reqs, const int32_t* matrix,
-            int n_jobs, int go, int ge, int32_t* best, int32_t* col,
-            int32_t* row, cudaStream_t stream) {
+int launch(const int8_t* t_cat, const int8_t* q_cat, const int8_t* bias_cat,
+           const int32_t* jobs, const int32_t* reqs, const int32_t* matrix,
+           int n_jobs, int go, int ge, int32_t* best, int32_t* col,
+           int32_t* row, cudaStream_t stream) {
   const dim3 grid((n_jobs + WARPS - 1) / WARPS), block(WARPS * 32);
   banded_swipe_multi_kernel<R><<<grid, block, 0, stream>>>(
       t_cat, q_cat, bias_cat, jobs, reqs, matrix, n_jobs, go, ge, best, col,
       row);
+  return 0;
 }
+
+using LaunchFn = int (*)(const int8_t*, const int8_t*, const int8_t*,
+                         const int32_t*, const int32_t*, const int32_t*, int,
+                         int, int, int32_t*, int32_t*, int32_t*,
+                         cudaStream_t);
+
+constexpr LaunchFn LAUNCH[16] = {
+    launch<1>,  launch<2>,  launch<3>,  launch<4>,  launch<5>,  launch<6>,
+    launch<7>,  launch<8>,  launch<9>,  launch<10>, launch<11>, launch<12>,
+    launch<13>, launch<14>, launch<15>, launch<16>};
 
 }  // namespace
 
+// rows_per_lane R in 1..16: every job's band <= 32 R.
 extern "C" int banded_swipe_multi_launch(
     int rows_per_lane, const void* t_cat, const void* q_cat,
     const void* bias_cat, const void* jobs, const void* reqs,
     const void* matrix, int n_jobs, int go, int ge, void* best, void* col,
     void* row, void* stream) {
   if (n_jobs <= 0) return 0;
-  auto tc = static_cast<const int8_t*>(t_cat);
-  auto qc = static_cast<const int8_t*>(q_cat);
-  auto bc = static_cast<const int8_t*>(bias_cat);
-  auto jb = static_cast<const int32_t*>(jobs);
-  auto rq = static_cast<const int32_t*>(reqs);
-  auto mx = static_cast<const int32_t*>(matrix);
-  auto b = static_cast<int32_t*>(best);
-  auto c = static_cast<int32_t*>(col);
-  auto r = static_cast<int32_t*>(row);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (rows_per_lane) {
-    case 1: launch<1>(tc, qc, bc, jb, rq, mx, n_jobs, go, ge, b, c, r, s); break;
-    case 2: launch<2>(tc, qc, bc, jb, rq, mx, n_jobs, go, ge, b, c, r, s); break;
-    case 4: launch<4>(tc, qc, bc, jb, rq, mx, n_jobs, go, ge, b, c, r, s); break;
-    case 8: launch<8>(tc, qc, bc, jb, rq, mx, n_jobs, go, ge, b, c, r, s); break;
-    case 16: launch<16>(tc, qc, bc, jb, rq, mx, n_jobs, go, ge, b, c, r, s); break;
-    default: return int(cudaErrorInvalidValue);
-  }
+  if (rows_per_lane < 1 || rows_per_lane > 16)
+    return int(cudaErrorInvalidValue);
+  LAUNCH[rows_per_lane - 1](
+      static_cast<const int8_t*>(t_cat), static_cast<const int8_t*>(q_cat),
+      static_cast<const int8_t*>(bias_cat),
+      static_cast<const int32_t*>(jobs), static_cast<const int32_t*>(reqs),
+      static_cast<const int32_t*>(matrix), n_jobs, go, ge,
+      static_cast<int32_t*>(best), static_cast<int32_t*>(col),
+      static_cast<int32_t*>(row), static_cast<cudaStream_t>(stream));
   return int(cudaGetLastError());
 }

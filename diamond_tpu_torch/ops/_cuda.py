@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, at first use, into ``diamond_tpu_torch/build/`` (listed
-in ``.gitignore``), keyed by the hash of the source, and loaded with ctypes.
+in ``.gitignore``), keyed by the hash of the source and of every shared
+header (``csrc/*.cuh``), and loaded with ctypes.
 Missing sources build in parallel, one ``nvcc`` per file.  A failed build
 raises; nothing falls back.
 """
@@ -38,9 +39,15 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
+    """The library of ``csrc/<name>.cu``, named by the hash of the source
+    and of every ``csrc/*.cuh`` (a header edit rebuilds its includers)."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        h.update(f.encode() + b"\0")
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names) -> None:

@@ -39,13 +39,13 @@ from diamond_tpu_torch.ops import swipe_uniform_device
 from diamond_tpu_torch.ops._cuda import check_tensors
 from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
 from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND, pad_band,
-                                                 pad_pow2, uniform_walk)
+                                                 uniform_walk)
 from diamond_tpu_torch.utils.device import resolve_device
 from diamond_tpu_torch.utils.log import pcount
 
 NEG = -(2 ** 20)
 MAX_DEVICE_BAND = 512        # 16 rows per lane of one warp
-ROWS_PER_LANE = (1, 2, 4, 8, 16)
+ROWS_PER_LANE = tuple(range(1, 17))  # the kernel's band classes
 JOB_COLS = 5                 # jobs[k] = (t_off, t_len, d0, band, req)
 MAX_BATCH_LETTERS = 1 << 30  # per launch batch: offsets are int32
 
@@ -63,8 +63,9 @@ def reset_dispatch_stats():
 
 
 def rows_per_lane(band: int) -> int:
-    """Band rows each of the warp's 32 lanes holds (the kernel's band class)."""
-    return pad_pow2(max(band, 1), 32) // 32
+    """Band rows each of the warp's 32 lanes holds (the kernel's band class):
+    ceil(band / 32), so a class walks at most 31 rows past its bands."""
+    return -(-max(band, 1) // 32)
 
 
 def _min_device_cells() -> int:
@@ -99,7 +100,7 @@ def _check_inputs(t_cat, q_cat, bias_cat, jobs, reqs, matrix32, R):
     if tuple(matrix32.shape) != (32, 32):
         raise ValueError(f"matrix32 must be [32, 32], got {tuple(matrix32.shape)}")
     if R not in ROWS_PER_LANE:
-        raise ValueError(f"rows_per_lane must be one of {ROWS_PER_LANE}")
+        raise ValueError(f"rows_per_lane must be in 1..{ROWS_PER_LANE[-1]}")
 
 
 def _k1():

@@ -23,7 +23,7 @@ from diamond_tpu_torch.utils.device import resolve_device
 
 NEG = -(2 ** 20)          # large negative, safe from int32 overflow in adds
 MAX_UNIFORM_BAND = 8192   # widest band the uniform-band kernel takes
-ROWS_PER_THREAD = (1, 2, 4, 8, 16)
+MAX_WARP_BAND = 512       # widest band of its one-warp-per-target path
 
 
 def pad_pow2(x: int, lo: int = 16) -> int:
@@ -42,11 +42,14 @@ def pad_band(x: int) -> int:
 
 def uniform_shape(band: int):
     """(rows per thread, threads) of the uniform-band kernel for ``band``:
-    about 128 threads of up to 16 consecutive band rows each, at most 512
-    threads (8192 rows)."""
+    up to MAX_WARP_BAND rows one warp per target (32 threads of ceil(band /
+    32) rows each); wider bands one CTA per target of about 128 threads of
+    8 or 16 consecutive band rows each, at most 512 threads (8192 rows)."""
     if not 1 <= band <= MAX_UNIFORM_BAND:
         raise ValueError(f"uniform-band kernel takes bands 1..{MAX_UNIFORM_BAND}")
-    R = min(pad_pow2(-(-band // 128), 1), ROWS_PER_THREAD[-1])
+    if band <= MAX_WARP_BAND:
+        return -(-band // 32), 32
+    R = min(pad_pow2(-(-band // 128), 1), 16)
     return R, -(-band // (32 * R)) * 32
 
 

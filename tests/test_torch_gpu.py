@@ -1,10 +1,10 @@
 """The port's CUDA kernels on the card (``pytest -m gpu tests/test_torch_*.py``).
 
-The banded-SWIPE kernel (K1), the 3-frame kernel (K3, read by read and
-many reads in one batch), the full-matrix sweep (K2), the uniform-band
-kernel (K4), the diagonal-band sweep (K5, also on queries above one strip,
-positive biases, tied bests, score-0 rows and pad cells that score) and the
-stage-2 filter (K6) against their plain PyTorch versions on the same card
+The banded-SWIPE kernel (K1, every band class), the 3-frame kernel (K3,
+read by read and many reads in one batch), the full-matrix sweep (K2), the
+uniform-band kernel (K4, its warp and CTA paths), the diagonal-band sweep
+(K5, also on queries above one strip, positive biases, tied bests, score-0
+rows and pad cells that score) and the stage-2 filter (K6) against their plain PyTorch versions on the same card
 tensors and against the host DP or a numpy oracle; exact integer equality.
 Skips without a card: a CUDA kernel has no CPU mode.
 """
@@ -34,7 +34,8 @@ def test_banded_swipe_kernel_matches_plain_on_gpu():
     m = ScoreMatrix("BLOSUM62")
     reqs = dp_requests(seed=11, n_queries=6)
     p = sd.pack_requests(reqs, "cuda")
-    assert len(p.classes) == 5  # every band class up to 512
+    # every band class up to 512: rows per lane 1..16
+    assert [R for R, _, _ in p.classes] == list(sd.ROWS_PER_LANE)
     dp = sd.DeviceDP(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
     launches = sd.banded_swipe_multi.launches
     got = dp.launch(p)
@@ -169,6 +170,19 @@ def test_uniform_swipe_kernel_matches_plain_and_host_on_gpu():
         assert got == ref
         bands.append(kb[3]["band"])
     assert max(bands) == 8192
+    # at the kernel's interface: the warp path (bands <= 512) and the CTA
+    # path, bands of no power of two, masks that are no prefix
+    warp_path = set()
+    for band, *arrs in _smoke().uniform_direct_cases(seed=20):
+        t_idx, bm, prof = (torch.from_numpy(a).cuda() for a in arrs)
+        got = sud.banded_swipe_uniform_cuda(t_idx, bm, prof, go, ge)
+        want = sud.banded_swipe_uniform_cuda_plain(t_idx, bm, prof, go, ge)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), band
+        warp_path.add(sud.uniform_shape(band)[1] == 32)
+        bands.append(band)
+    assert warp_path == {True, False}
+    assert {16, 128, 500, 512, 513, 1024} <= set(bands)
 
 
 @pytest.mark.gpu

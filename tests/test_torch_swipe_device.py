@@ -53,11 +53,37 @@ def blosum():
     return ScoreMatrix("BLOSUM62")
 
 
-@pytest.fixture(scope="module")
-def jax_run(blosum):
-    """diamond_tpu's DeviceDP in interpret mode on seeded requests, with
-    every Pallas call's packed inputs and outputs recorded."""
-    reqs = _requests(seed=7)
+def _band_requests(seed, band):
+    """Seeded requests whose jobs all have band ``band``: a query holding a
+    segment twice (ties between rows), targets holding it twice (ties
+    between columns) on a band diagonal, d0 < 0, bias on the second query,
+    and a job with no in-query cell (score 0)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for r in range(2):
+        qlen = int(rng.integers(60, 160))
+        q = rng.integers(0, 20, qlen).astype(np.int8)
+        seg = q[4:16].copy()
+        q[qlen // 2: qlen // 2 + 12] = seg
+        bias = rng.integers(-4, 5, qlen).astype(np.int32) if r else None
+        jobs = []
+        for _ in range(3):
+            tl = int(rng.integers(30, 90))
+            t = rng.integers(0, 20, tl).astype(np.int8)
+            t[2:14] = seg
+            t[tl - 14: tl - 2] = seg
+            # diagonal 2 in the band, which starts at a diagonal the target
+            # has (the host oracle's native scorer errs below -(tl - 1))
+            d0 = max(2 - int(rng.integers(0, band)), -(tl - 1))
+            jobs.append((t, d0, d0 + band))
+        jobs.append((t[:8], qlen + 5, qlen + 5 + band))  # no query cell
+        reqs.append((q, bias, jobs))
+    return reqs
+
+
+def _jax_device_dp(reqs, blosum):
+    """diamond_tpu's DeviceDP in interpret mode on ``reqs``: its output and
+    every Pallas call's packed inputs and outputs."""
     calls = []
     orig = jsd.banded_swipe_pallas_multi
 
@@ -74,7 +100,15 @@ def jax_run(blosum):
         out = dev.run_many(reqs)
     finally:
         jsd.banded_swipe_pallas_multi = orig
-    return reqs, out, calls
+    return out, calls
+
+
+@pytest.fixture(scope="module")
+def jax_run(blosum):
+    """diamond_tpu's DeviceDP in interpret mode on seeded requests, with
+    every Pallas call's packed inputs and outputs recorded."""
+    reqs = _requests(seed=7)
+    return (reqs, *_jax_device_dp(reqs, blosum))
 
 
 def _torch_inputs(packed):
@@ -121,6 +155,48 @@ def test_devicedp_matches_reference(jax_run, blosum):
     assert n_zero >= len(reqs)  # the no-cell jobs
 
 
+@pytest.mark.parametrize("band", [1, 31, 33, 65, 97, 129, 200, 257, 480, 512])
+def test_exact_band_class_matches_pallas_and_host(band, blosum):
+    """Jobs of one band fall in the kernel's exact class ceil(band / 32).
+    The plain version at that class and at the Pallas batch's padded class
+    equals the Pallas kernel row for row (from_pallas_batch); DeviceDP
+    equals the host DP oracle triple for triple (tied bests and a score-0
+    job included) and diamond_tpu's DeviceDP wherever the score is
+    positive."""
+    reqs = _band_requests(100 + band, band)
+    jax_out, calls = _jax_device_dp(reqs, blosum)
+    assert calls
+    for (t2, bm, ql, qb, qv, m32), (go, ge, pband, T, tile_b, _), want in calls:
+        packed, R_pad = sd.from_pallas_batch(t2, bm, ql, qb, qv, T, pband,
+                                             tile_b)
+        x = _torch_inputs(packed)
+        R_exact = sd.rows_per_lane(int(packed["jobs"][:, 3].max()))
+        assert R_exact == -(-band // 32) <= R_pad
+        for R in {R_exact, R_pad}:
+            got = sd.banded_swipe_multi(x["t_cat"], x["q_cat"], x["bias_cat"],
+                                        x["jobs"], x["reqs"],
+                                        torch.from_numpy(m32.copy()), go, ge,
+                                        R)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), w)
+    p = sd.pack_requests(reqs, "cpu")
+    assert [R for R, _, _ in p.classes] == [-(-band // 32)]
+    assert p.walk_cells == sum(len(t) for _, _, j in reqs
+                               for t, _, _ in j) * 32 * -(-band // 32)
+    port = sd.DeviceDP(blosum.matrix32, blosum.gap_open, blosum.gap_extend,
+                       device="cpu").run_many(reqs)
+    scores = []
+    for (q, bias, jobs), got, jx in zip(reqs, port, jax_out):
+        assert got == banded_swipe_batch_np(q, bias, jobs, blosum.matrix32,
+                                            blosum.gap_open, blosum.gap_extend)
+        for g, j in zip(got, jx):
+            assert g[0] == j[0]
+            if g[0] > 0:
+                assert g == j
+            scores.append(g[0])
+    assert min(scores) == 0 and max(scores) > 0
+
+
 def test_devicedp_splits_batches_above_letter_cap(jax_run, blosum,
                                                  monkeypatch):
     reqs = jax_run[0]
@@ -143,9 +219,10 @@ def test_plain_rejects_bad_inputs():
     with pytest.raises(TypeError):
         sd.banded_swipe_multi(x["t_cat"].int(), x["q_cat"], x["bias_cat"],
                               x["jobs"], x["reqs"], m, 12, 1, 1)
-    with pytest.raises(ValueError):
-        sd.banded_swipe_multi(x["t_cat"], x["q_cat"], x["bias_cat"],
-                              x["jobs"], x["reqs"], m, 12, 1, 3)
+    for bad_rows in (0, 17):  # band classes are 1..16 rows per lane
+        with pytest.raises(ValueError):
+            sd.banded_swipe_multi(x["t_cat"], x["q_cat"], x["bias_cat"],
+                                  x["jobs"], x["reqs"], m, 12, 1, bad_rows)
     assert sd.banded_swipe_multi.launches == 0
 
 

@@ -106,6 +106,34 @@ def test_plain_matches_host_oracle(seed, max_band, blosum):
     assert any(s == 0 for s, _, _ in ref) and any(s > 0 for s, _, _ in ref)
 
 
+@pytest.mark.parametrize("width,warp", [(500, True), (600, False)])
+def test_warp_and_cta_bands_match_pallas_and_host(width, warp, blosum):
+    """A band on each side of 512: pack_uniform_batch pads 500 to 512 (the
+    kernel's warp path) and 600 to 1024 (its CTA path).  The plain version
+    equals the Pallas kernel in interpret mode row for row
+    (from_pallas_uniform_batch) and the host DP oracle in the kernel's
+    best-effort coordinates."""
+    q, bias, jobs = _query_jobs(8 + warp, 300, 4, width, max_tl=50)
+    go, ge = blosum.gap_open + blosum.gap_extend, blosum.gap_extend
+    best, mc, mr, meta = sud.uniform_scores(q, bias, blosum.matrix32, jobs,
+                                            go, ge, "cpu")
+    assert (su.uniform_shape(meta["band"])[1] == 32) == warp
+    tgt, bmask, ppad, band, _ = jsp.prepare_pallas_batch(
+        q, bias, blosum.matrix32, jobs, tile_b=8)
+    assert band == meta["band"]
+    want = _pallas_interpret(tgt, bmask, ppad, go, ge, band, 8)
+    x = _torch(sud.from_pallas_uniform_batch(tgt, bmask, ppad, band))
+    got = sud.banded_swipe_uniform_cuda(x["t_idx"], x["band_mask"], x["prof_t"],
+                                        go, ge)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    ref = banded_swipe_batch_np(q, bias, jobs, blosum.matrix32,
+                                blosum.gap_open, blosum.gap_extend)
+    assert [(int(best[k]), max(int(mc[k]) - meta["shifts"][k], 0), int(mr[k]))
+            for k in range(len(jobs))] == sud.host_as_uniform(ref, jobs)
+    assert any(s == 0 for s, _, _ in ref) and any(s > 0 for s, _, _ in ref)
+
+
 def test_banded_swipe_uniform_matches_xla(blosum):
     """The one-hot path and SwipeBatcher == diamond_tpu's swipe_jax."""
     q, bias, jobs = _query_jobs(5, 50, 5, 30)
@@ -157,5 +185,9 @@ def test_wrapper_rejects_bad_inputs():
         sud.banded_swipe_uniform_cuda(
             t, torch.ones(2, 8193, dtype=torch.int8),
             torch.zeros(32, 8 + 8193, dtype=torch.int32), 12, 1)
+    # bands <= 512: one warp per target, ceil(band / 32) rows a lane;
+    # wider: one CTA per target
     assert [su.uniform_shape(b) for b in (16, 128, 1024, 5120, 8192)] == [
-        (1, 32), (1, 128), (8, 128), (16, 320), (16, 512)]
+        (1, 32), (4, 32), (8, 128), (16, 320), (16, 512)]
+    assert [su.uniform_shape(b) for b in (1, 33, 200, 500, 512, 513)] == [
+        (1, 32), (2, 32), (7, 32), (16, 32), (16, 32), (8, 96)]
