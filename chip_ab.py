@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Time the shipped source of a kernel against an older one on one CUDA card.
 
-    python3 chip_ab.py --kernel k1|k3|k4 --parent OLD.cu [--same-shape]
-                       [--rounds N] [--queries N] [--reads N] [--seed S]
+    python3 chip_ab.py --kernel k1|k2|k3|k4|k6 --parent OLD.cu [--same-shape]
+                       [--rounds N] [--queries N] [--reads N]
+                       [--swipe-queries N] [--seed S]
 
 Builds the kernel's shipped source (``diamond_tpu_torch/csrc``) and the
-given older source (``--parent``), one nvcc each, both at once.  Then it
-times them in turns (A B B A, ``--rounds`` times) on the batches of the
-kernel's path:
+given older source (``--parent``), one nvcc each, both at once.  Then it times them in turns (A B B
+A, ``--rounds`` times) on the batches of the kernel's path:
 
   k1  the largest DeviceDP batch of chip_smoke.py's blastp self-search;
+  k2  the largest launch of its blastp --swipe run (32 queries against the
+      10,000 proteins), and all of that run's launches;
   k3  the largest 3-frame batch of its blastx --long-reads run (a window of
       reads) and that window's largest one-read batch;
   k4  the benchmark's first row (band 128) and its full-matrix row (band
-      1,024), benchmark.FULL's sizes.
+      1,024), benchmark.FULL's sizes;
+  k6  the benchmark's stage-2 row, 131,072 pairs x 96 window letters.
+
+Each round times each variant three ways: 10 calls launched from Python
+between two events (the per-call time of chip_smoke.py's rows), 10 calls
+replayed from one CUDA graph (the kernels' own time), and, for k6, one
+call at a time after the L2 was flushed (cold) by writing 256 MB, and
+by reading them.
 
 The shipped source is launched with its band classes (``rows_per_lane``,
 ``offsets_per_lane``, ``uniform_shape``) and must accept them; so is the
@@ -21,11 +30,12 @@ older one, except that an older K1 refusing a class of no power of two
 (cudaErrorInvalidValue) gets power-of-two classes, and an older K4 the
 CTA-per-target shape (``cta_shape``); with ``--same-shape`` (a variant of
 the shipped design) it gets the shipped shapes and must accept them.  The
-older source must give the shipped outputs.  Prints the card's name and power limit, each variant's
-time per round, its median and its ratio to the bound (the cells the batch
-needs times the recurrence's int32 operations over 132 SMs x 64 lanes at
-the card's maximum SM clock), and the mismatches against the shipped
-source.  Exits 1 without a card.
+older source must give the shipped outputs.  Prints the card's name and
+power limit, each variant's times per round, their medians and their
+ratios to the bound (the larger of the cells the batch needs times the
+recurrence's int32 operations over 132 SMs x 64 lanes at the card's
+maximum SM clock, and the bytes it reads and writes once over 3.35 TB/s),
+and the mismatches against the shipped source.  Exits 1 without a card.
 """
 from __future__ import annotations
 
@@ -38,10 +48,13 @@ import tempfile
 
 import numpy as np
 
-SOURCES = {"k1": "banded_swipe", "k3": "swipe3", "k4": "uniform_swipe"}
+SOURCES = {"k1": "banded_swipe", "k2": "full_swipe", "k3": "swipe3",
+           "k4": "uniform_swipe", "k6": "stage2"}
 SYMBOLS = {"k1": ("banded_swipe_multi_launch", "ippppppiiipppp"),
+           "k2": ("full_swipe_launch", "ipppppppiiiipipp"),
            "k3": ("banded_swipe3_launch", "ipppppiiiippp"),
-           "k4": ("uniform_swipe_mask_launch", "iipppiiiiipppp")}
+           "k4": ("uniform_swipe_mask_launch", "iipppiiiiipppp"),
+           "k6": ("stage2_launch", "ppppiiiipppp")}
 
 
 def cta_shape(band: int):
@@ -65,8 +78,8 @@ def build_variants(kernel: str, parent: str, tmp: str):
         so = os.path.join(tmp, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
             [_cuda.nvcc_path(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-I", _cuda.CSRC_DIR,
-             "-o", so, cu],
+             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+             _cuda.CSRC_DIR, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
     sym, args = SYMBOLS[kernel]
@@ -74,6 +87,9 @@ def build_variants(kernel: str, parent: str, tmp: str):
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
         fn = getattr(ctypes.CDLL(so), sym)
         fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
                        for a in args]
@@ -169,7 +185,7 @@ def k1_case(args, cs, torch, m):
     print(f"k1 batch: {n} jobs in {len(reqs)} requests, {cells} exact band "
           f"cells; exact classes walk {p.walk_cells} cells, power-of-two "
           f"classes {int((jobs[:, 1] * 32 * pow2).sum())}")
-    return [("blastp main-path batch", cells, 12, make_call)]
+    return [("blastp main-path batch", cells, cs.K1_OPS, 0, make_call)]
 
 
 def k3_case(args, cs, torch, m):
@@ -233,7 +249,8 @@ def k3_case(args, cs, torch, m):
                 [(32 * k, j.shape[0]) for k, j in sel]
 
         cells = int(cs.swipe3_cells(pk["jobs"], pk["reqs"]).sum())
-        cases.append((f"{label} ({len(jb)} jobs)", cells, 15, make_call))
+        cases.append((f"{label} ({len(jb)} jobs)", cells, cs.K3_OPS, 0,
+                      make_call))
     return cases
 
 
@@ -278,9 +295,110 @@ def k4_case(args, cs, torch, m):
             call()
             return call, outs, [(bd, R, th)]
 
-        cases.append((f"{label} ({B} targets of {T}, band {bd})", cells, 11,
-                      make_call))
+        cases.append((f"{label} ({B} targets of {T}, band {bd})", cells,
+                      cs.K45_OPS, 0, make_call))
     return cases
+
+
+def k2_case(args, cs, torch, m):
+    """The largest launch of the blastp --swipe run, and all its launches."""
+    from diamond_tpu_torch.cli import main as cli_main
+    from diamond_tpu_torch.ops import swipe_device as sd
+
+    blocks = []
+    dispatch = sd.FullSweep.dispatch_block
+
+    def spy(self, queries, tblock, t_order, kernel=None):
+        blocks.append((self, queries, tblock, t_order))
+        return dispatch(self, queries, tblock, t_order, kernel=kernel)
+
+    recs = cs.make_proteins(seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        db, qf = os.path.join(tmp, "db.faa"), os.path.join(tmp, "q.faa")
+        cs.write_fasta(db, recs)
+        cs.write_fasta(qf, recs[:args.swipe_queries])
+        sd.FullSweep.dispatch_block = spy
+        try:
+            rc = cli_main(["blastp", "-q", qf, "-d", db, "--swipe", "-f", "6",
+                           "-o", os.path.join(tmp, "out")])
+        finally:
+            sd.FullSweep.dispatch_block = dispatch
+    if rc or not blocks:
+        raise RuntimeError("the --swipe run made no FullSweep block")
+    sweep, queries, tblock, t_order = blocks[0]
+    b = sweep.pack(queries, tblock, t_order)
+    x = {k: torch.from_numpy(getattr(b, k)).cuda()
+         for k in ("t_cat", "targets", "q_cat", "bias_cat")}
+    per = [(L, torch.from_numpy(L.reqs).cuda(),
+            torch.from_numpy(L.pairs).cuda(),
+            torch.empty((L.slots, 2, len(b.t_cat), 2), dtype=torch.int32,
+                        device="cuda")) for L in b.launches]
+
+    def case(label, launches):
+        def make_call(fn, parent=False):
+            out = torch.zeros((b.n_queries, b.n_targets), dtype=torch.int32,
+                              device="cuda")
+
+            def call():
+                for L, r, p, scratch in launches:
+                    check(fn(L.R, x["t_cat"].data_ptr(),
+                             x["targets"].data_ptr(), x["q_cat"].data_ptr(),
+                             x["bias_cat"].data_ptr(), r.data_ptr(),
+                             p.data_ptr(), sweep._m32.data_ptr(), p.shape[0],
+                             b.n_targets, sweep.go, sweep.ge,
+                             scratch.data_ptr(), len(b.t_cat), out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream))
+
+            call()
+            return call, [out], [(L.R, len(L.pairs)) for L, _, _, _ in
+                                 launches]
+
+        cells = sum(L.cells for L, _, _, _ in launches)
+        n_bytes = (len(b.t_cat) + 4 * b.targets.size + len(b.q_cat)
+                   + len(b.bias_cat) + sum(4 * (L.reqs.size + L.pairs.size
+                                                + 32 * 32 + len(L.pairs))
+                                           for L, _, _, _ in launches))
+        return (label, cells, cs.K2_OPS, n_bytes, make_call)
+
+    big = max(per, key=lambda t: t[0].cells)
+    print(f"k2 block: {b.n_queries} queries x {b.n_targets} targets in "
+          f"{len(per)} launches; the largest has {len(big[0].pairs)} pairs "
+          f"of R {big[0].R}")
+    return [case("--swipe largest launch", [big]),
+            case(f"--swipe path ({len(per)} launches)", per)]
+
+
+def k6_case(args, cs, torch, m):
+    """The benchmark's stage-2 row: 131,072 pairs x 96 window letters, with
+    chip_smoke.py's timing inputs."""
+    from diamond_tpu_torch.benchmark import FULL
+
+    rng = np.random.default_rng(args.seed + 6)
+    n, w = FULL["N2"], 96
+    qw = rng.integers(0, 20, (w, n)).astype(np.int8)
+    sw = rng.integers(0, 20, (w, n)).astype(np.int8)
+    sw[:, ::5] = qw[:, ::5]
+    meta = np.zeros((3, n), np.int32)
+    meta[0], meta[1], meta[2] = 40, 40, 20
+    x = [torch.from_numpy(a).cuda() for a in
+         (qw, sw, meta, np.ascontiguousarray(m.matrix32[:32, :32],
+                                              dtype=np.int32))]
+
+    def make_call(fn, parent=False):
+        outs = [torch.empty(n, dtype=dt, device="cuda")
+                for dt in (torch.bool, torch.int32, torch.int32)]
+
+        def call():
+            check(fn(*[a.data_ptr() for a in x], w, n, w // 2, 26,
+                     *[o.data_ptr() for o in outs],
+                     torch.cuda.current_stream().cuda_stream))
+
+        call()
+        return call, outs, [(w, n)]
+
+    n_bytes = 2 * w * n + 4 * meta.size + 4 * 32 * 32 + (1 + 4 + 4) * n
+    return [(f"benchmark stage-2 row ({n} pairs x {w})", n * w, cs.K6_OPS,
+             n_bytes, make_call)]
 
 
 def main(argv=None):
@@ -295,6 +413,8 @@ def main(argv=None):
                     help="queries of the blastp run (k1)")
     ap.add_argument("--reads", type=int, default=300,
                     help="reads of the long-reads run (k3)")
+    ap.add_argument("--swipe-queries", type=int, default=32,
+                    help="queries of the blastp --swipe run (k2)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -315,12 +435,15 @@ def main(argv=None):
     m = ScoreMatrix("BLOSUM62")
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(args.kernel, args.parent, tmp)
-        cases = {"k1": k1_case, "k3": k3_case, "k4": k4_case}[args.kernel](
-            args, cs, torch, m)
-        for label, cells, ops, make_call in cases:
-            bound_ms = cells * ops / lanes_per_s * 1e3
-            print(f"{label}: {cells} cells x {ops} int32 ops, bound "
-                  f"{bound_ms:.5f} ms (operations)")
+        cases = {"k1": k1_case, "k2": k2_case, "k3": k3_case, "k4": k4_case,
+                 "k6": k6_case}[args.kernel](args, cs, torch, m)
+        for label, cells, ops, n_bytes, make_call in cases:
+            bound_ms = max(cells * ops / lanes_per_s,
+                           n_bytes / cs.HBM_BYTES_PER_S) * 1e3
+            by = ("operations" if cells * ops / lanes_per_s
+                  >= n_bytes / cs.HBM_BYTES_PER_S else "bytes")
+            print(f"{label}: {cells} cells x {ops} int32 ops, {n_bytes} "
+                  f"bytes, bound {bound_ms:.5f} ms ({by})")
             calls = {}
             for name, fn in fns.items():
                 kw = ({"parent": True} if name == "parent"
@@ -330,17 +453,26 @@ def main(argv=None):
                 calls[name] = (call, [o.clone() for o in outs])
                 print(f"  {name}: launches {shape}")
             want = calls["shipped"][1]
-            times = {name: [] for name in calls}
+            ways = {"per call": lambda c: cs.cuda_ms(c, 10),
+                    "kernel only": lambda c: cs.graph_ms(c, 10)}
+            if args.kernel == "k6":
+                ways["cold, L2 written"] = lambda c: cs.cold_ms(c, 10, True)
+                ways["cold, L2 read"] = lambda c: cs.cold_ms(c, 10, False)
+            times = {name: {w: [] for w in ways} for name in calls}
             order = list(calls)
             for r in range(args.rounds):
                 for name in (order if r % 2 == 0 else order[::-1]):
-                    times[name].append(cs.cuda_ms(calls[name][0], 10))
+                    for w, timer in ways.items():
+                        times[name][w].append(timer(calls[name][0]))
             for name, (call, outs) in calls.items():
                 mis = sum(int((o != w).sum()) for o, w in zip(outs, want))
-                med = float(np.median(times[name]))
-                print(f"  {name}: {' '.join(f'{t:.4f}' for t in times[name])}"
-                      f" ms; median {med:.4f} ms, {med / bound_ms:.2f}x the "
-                      f"bound; mismatches vs shipped {mis}; {name_power}")
+                for w in ways:
+                    med = float(np.median(times[name][w]))
+                    print(f"  {name} {w}: "
+                          f"{' '.join(f'{t:.4f}' for t in times[name][w])} "
+                          f"ms; median {med:.4f} ms, {med / bound_ms:.2f}x "
+                          f"the bound")
+                print(f"  {name}: mismatches vs shipped {mis}; {name_power}")
                 if mis:
                     raise RuntimeError(f"{name} disagrees with the shipped "
                                        f"source")

@@ -17,8 +17,11 @@ Phases; each one fails the run on error:
      unequal length, d0 < 0, band 1, targets shorter than the band, read
      by read against the native host DP and all reads in one batch
      against the plain version and the reads one by one; the
-     full-matrix sweep (K2) against the
-     full-band host DP, with and without bias, queries above one strip; the
+     full-matrix sweep (K2) against the full-band host DP, with and
+     without bias, queries above one strip, and at its own interface
+     (against the host DP) on every rows-per-lane class with 1, 31 and
+     32R - 1 padding rows, 2-16 strips and low-complexity runs with gaps
+     1/1; the
      uniform-band DP (K4) on bands of 16 to 8192 rows, with and without
      bias, d0 < 0, targets shorter than the band, also through the direct
      DP route, and at its own interface on bands of no power of two, masks
@@ -27,15 +30,19 @@ Phases; each one fails the run on error:
      diagonal-band sweep (K5, SwipeSweep) against the full-band host DP,
      with queries above one strip, positive biases, tied bests and score-0
      rows, and on a profile whose pad cells score (and a dead row) against
-     its plain version; the stage-2 filter (K6) at the benchmark's shape
-     and on pregathered pairs of a padded count, against a numpy oracle;
+     its plain version; the stage-2 filter (K6) at the benchmark's shape,
+     on pregathered pairs of a padded count and on edge batches (pair
+     counts of no multiple of 16, zero-width windows, hamming_id at the
+     edge), against a numpy oracle;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters);
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
      (~1 indel per kb) against it; >= 95 % must hit their source protein;
   6. blastx: default six-frame search of seeded 300-1500 nt reads (its DP
      is on the host, as in the reference; run once);
-  7. blastp --swipe: the first 32 proteins against the whole set;
+  7. blastp --swipe: the first 32 proteins against the whole set, its
+     phase timers printed (masking, dispatch, pack, copies and launches,
+     host tail, readback, per-query finish, output);
      paths 4, 5 and 7 run once with the DP on the card and once with
      DIAMOND_TPU_TORCH_DEVICE_DP=0; the outputs must be identical and the
      path's kernel must have launched (counts set to 0 before each run);
@@ -46,10 +53,15 @@ Phases; each one fails the run on error:
      paths 4-9 report the card's kernel busy time (CUDA events around every
      launch) and its idle share;
  10. timing: each kernel, its plain version and the bound on the largest
-     batch of its path (CUDA events); K1 with its band classes and the
-     cells it walks against the exact band cells; K3 also on the largest
-     one-read batch of the long-reads run; K4 also on the benchmark's
-     full-matrix row (band 1,024, the CTA path).
+     batch of its path (CUDA events): per call (the wrapper launched from
+     Python) and kernel only (the launches replayed from a CUDA graph);
+     K1 with its band classes and the cells it walks against the exact
+     band cells; K3 also on the largest one-read batch of the long-reads
+     run; K4 also on the benchmark's full-matrix row (band 1,024, the CTA
+     path); K2 also over the whole --swipe path, against its bound at 7
+     int32 ops a cell (DPX counted) and at the 11 before DPX; K6 also cold
+     (the L2 flushed before each launch by writing 256 MB, and by reading
+     them).
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -75,9 +87,16 @@ HBM_BYTES_PER_S = 3.35e12
 K1_OPS = 12
 K1_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and F), F-ge, "
            "max for F, max F into H, valid select, best max, E-ge, max for E")
-K2_OPS = 11
-K2_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and F), E-ge, "
-           "max for E, F-ge, max for F, max F into H, best max")
+# K2 as Hopper issues it: DPX fuses each add-max pair and the profile holds
+# the bias.  The count before DPX (K2_PRE_DPX_OPS) is printed beside it.
+K2_OPS = 7
+K2_NOTE = ("H+s with max E and max 0 (one __viaddmax_s32_relu), cur0-go, "
+           "F-ge with max for F (one), max F into H, H-go, E-ge with max for "
+           "E (one), best max")
+K2_PRE_DPX_OPS = 11
+K2_PRE_DPX_NOTE = ("bias add, H+s, max E, max 0, H-go (shared by E and "
+                   "F), E-ge, max for E, F-ge, max for F, max F into H, "
+                   "best max")
 K3_OPS = 15
 K3_NOTE = ("s-fs, diagonal+s, row r-1 + (s-fs), row r+1 + (s-fs), 5 max "
            "over those three, the vertical gap, the horizontal state and 0, "
@@ -305,6 +324,114 @@ def sweep_inputs(seed: int):
     return queries, targets
 
 
+def k2_edge_cases(seed: int):
+    """Seeded cases for the full-matrix sweep (K2) at its own interface, one
+    query each: (label, query, bias or None, rows per lane R, targets,
+    gap_open, gap_extend).  Every R in 1..16 in one strip with 1, 31 and
+    32R - 1 rows past the query (the unmasked padding); queries of 2 to 16
+    strips; low-complexity runs with gap open 1 and extend 1, so vertical
+    gaps cross lanes and strips; bias on every other case.  The targets
+    hold stretches of the query, so most pairs score above random."""
+    rng = np.random.default_rng(seed)
+
+    def low(n):
+        return np.resize(rng.integers(0, 20, 3), n).astype(np.int8)
+
+    def targets_for(q):
+        out = [rng.integers(0, 20, int(n)).astype(np.int8)
+               for n in rng.integers(1, 300, 6)]
+        for k in range(4):
+            a = int(rng.integers(len(q)))
+            stretch = q[a:a + int(rng.integers(1, 80))]
+            out.append(np.concatenate([rng.integers(0, 20, k * 7).astype(
+                np.int8), stretch, stretch[::-1]]))
+        return out
+
+    cases = []
+    for R in range(1, 17):
+        for pad in sorted({1, 31, 32 * R - 1}):
+            n = 32 * R - pad
+            if n < 1:
+                continue
+            q = rng.integers(0, 20, n).astype(np.int8)
+            bias = (rng.integers(-4, 5, n).astype(np.int8)
+                    if (R + pad) % 2 else None)
+            cases.append((f"R {R}, {pad} padding rows", q, bias, R,
+                          targets_for(q), 11, 1))
+    for strips, R, last in ((2, 16, 1), (3, 12, 40), (5, 1, 31), (9, 4, 100),
+                            (16, 16, 511)):
+        n = 32 * R * (strips - 1) + last
+        q = rng.integers(0, 20, n).astype(np.int8)
+        cases.append((f"{strips} strips of R {R}", q,
+                      rng.integers(-4, 5, n).astype(np.int8)
+                      if strips % 2 else None, R, targets_for(q), 11, 1))
+    for n, R in ((700, 11), (1100, 12), (40, 2), (2049, 4)):
+        q = low(n)
+        ts = [low(int(x)) for x in rng.integers(5, 600, 5)] + targets_for(q)
+        cases.append((f"low complexity {n}, gaps 1/1", q,
+                      rng.integers(-4, 5, n).astype(np.int8) if n % 2
+                      else None, R, ts, 1, 1))
+    return cases
+
+
+def k2_direct_inputs(q, bias, targets, R):
+    """One K2 launch of one query against targets with rows per lane R:
+    numpy (t_cat, targets, q_cat, bias_cat, reqs, pairs) and the scratch
+    slots it needs."""
+    tl = np.array([len(t) for t in targets], np.int64)
+    t_off = np.concatenate([[0], np.cumsum(tl)[:-1]])
+    slots = int(len(q) > 32 * R)
+    return dict(
+        t_cat=np.concatenate(targets).astype(np.int8),
+        targets=np.stack([t_off, tl], axis=1).astype(np.int32),
+        q_cat=np.asarray(q, np.int8),
+        bias_cat=(np.zeros(len(q), np.int8) if bias is None
+                  else np.asarray(bias, np.int8)),
+        reqs=np.array([[0, len(q), slots - 1]], np.int32),
+        pairs=np.stack([np.zeros(len(targets)), np.arange(len(targets))],
+                       axis=1).astype(np.int32)), slots
+
+
+def k2_mixed_inputs(seed: int):
+    """One K2 launch (rows per lane 4) whose blocks hold pairs of several
+    queries: queries of 300 (3 strips, bias), 100, 128 (no padding row) and
+    200 letters (2 strips, bias), the two multi-strip ones in scratch slots
+    0 and 1; the first block all of the first query, the other pairs
+    shuffled, and 39 pairs, so the last block has one idle warp.  Returns
+    (queries, biases, targets, R, numpy inputs as k2_direct_inputs gives
+    them, scratch slots)."""
+    rng = np.random.default_rng(seed)
+    R = 4
+    lens, slot = (300, 100, 128, 200), (0, -1, -1, 1)
+    queries = [rng.integers(0, 20, n).astype(np.int8) for n in lens]
+    biases = [rng.integers(-4, 5, n).astype(np.int8) if k in (0, 3) else None
+              for k, n in enumerate(lens)]
+    targets = []
+    for k in range(10):
+        q = queries[k % 4]
+        a = int(rng.integers(len(q)))
+        targets.append(np.concatenate([
+            rng.integers(0, 20, int(rng.integers(0, 200))).astype(np.int8),
+            q[a:a + int(rng.integers(1, 120))]]))
+    rest = [(qi, ti) for qi in range(4) for ti in range(10)
+            if (qi, ti) != (2, 9) and not (qi == 0 and ti < 4)]
+    order = rng.permutation(len(rest))
+    pairs = [(0, t) for t in range(4)] + [rest[k] for k in order]
+    tl = np.array([len(t) for t in targets], np.int64)
+    ql = np.array(lens, np.int64)
+    t_off = np.concatenate([[0], np.cumsum(tl)[:-1]])
+    q_off = np.concatenate([[0], np.cumsum(ql)[:-1]])
+    arrs = dict(
+        t_cat=np.concatenate(targets).astype(np.int8),
+        targets=np.stack([t_off, tl], axis=1).astype(np.int32),
+        q_cat=np.concatenate(queries).astype(np.int8),
+        bias_cat=np.concatenate([np.zeros(len(q), np.int8) if b is None
+                                 else b for q, b in zip(queries, biases)]),
+        reqs=np.stack([q_off, ql, slot], axis=1).astype(np.int32),
+        pairs=np.array(pairs, np.int32))
+    return queries, biases, targets, R, arrs, 2
+
+
 UNIFORM_BANDS = (16, 32, 100, 128, 512, 700, 1024, 3000, 5120, 8192)
 
 
@@ -484,6 +611,36 @@ def stage2_pairs(seed: int, n: int):
     return q_letters, s_letters, qp, sp, windows, cutoffs
 
 
+def stage2_edge_cases(seed: int):
+    """Seeded stage-2 filter (K6) batches at its own interface: (label,
+    qw8, sw8 [W, N], meta [3, N], hamming_id, max_window).  Pair counts
+    that are no multiple of 16 or of a block (1 to 4,099), windows clipped
+    to zero width on either side or both, hamming_id at the edge of a
+    pair's identity count (0, the count itself, one above it, 48, 49),
+    and max_window 32, 48, 64 and 223 (446 rows, the kernel's most)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for n, max_window in ((1, 32), (15, 48), (17, 64), (255, 48),
+                          (257, 32), (1003, 48), (4099, 64), (301, 223)):
+        W = 2 * max_window
+        qw = rng.integers(0, 20, (W, n)).astype(np.int8)
+        sw = rng.integers(0, 20, (W, n)).astype(np.int8)
+        same = rng.random((W, n)) < rng.uniform(0.2, 1.0, n)
+        sw[same] = qw[same]
+        wl = rng.integers(0, max_window + 1, n)
+        wr = rng.integers(0, max_window + 1, n)
+        wl[::3], wr[1::3] = 0, 0
+        wl[2::7] = wr[2::7] = 0
+        meta = np.stack([wl, wr, rng.integers(0, 80, n)]).astype(np.int32)
+        fp = slice(max_window - 16, max_window + 32)
+        ident = (qw[fp] == sw[fp]).sum(axis=0)
+        k = int(ident[0])
+        for hid in sorted({0, k, k + 1, 48, 49}):
+            cases.append((f"N {n}, max_window {max_window}, hamming_id "
+                          f"{hid}", qw, sw, meta, hid, max_window))
+    return cases
+
+
 def stage2_oracle(qw8, sw8, meta, m2, hamming_id: int, max_window: int):
     """The stage-2 filter in numpy over pregathered windows (qw8, sw8 [W, N]
     letters, meta [3, N] rows wl, wr, cutoff): the fingerprint identity
@@ -522,6 +679,60 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """The kernels' own time: ``reps`` calls of fn captured in one CUDA
+    graph, its replay timed between two events, so no host cadence (Python,
+    ctypes, allocation) lies between the launches.  Memsets that fn itself
+    enqueues are in the graph too."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm the allocator outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+COLD_BYTES = 256 << 20  # flushed between cold launches: five times the L2
+
+
+def cold_ms(fn, reps: int, write: bool) -> float:
+    """Median time of one call of fn that finds the L2 cold: before each
+    call the card writes COLD_BYTES (the L2 is then full of dirty lines,
+    which the call's reads must first write back) or reads them (clean
+    lines), then spins ~0.1 ms so that the call is queued before the card
+    reaches it; all outside the call's own events."""
+    import torch
+
+    flush = torch.empty(COLD_BYTES // 4, dtype=torch.int32, device="cuda")
+    times = []
+    for k in range(reps):
+        if write:
+            flush.fill_(k)
+        else:
+            flush.max()
+        torch.cuda._sleep(200_000)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 T0 = time.perf_counter()
@@ -750,7 +961,52 @@ def main(argv=None):
           f"{len(targets)} targets, rows-per-lane classes "
           f"{sorted(L_.R for L_ in blk.launches)}, kernel vs plain mismatches "
           f"{k2_mis}, kernel vs host DP (full band) mismatches {k2_host_mis}")
-    if k2_mis or k2_host_mis:
+    # at the kernel's interface: every R with 1, 31 and 32R - 1 padding
+    # rows, 2-16 strips, low-complexity runs with gaps 1/1, against the host
+    # DP (tests/test_torch_gpu.py holds them against the plain version too)
+    edges = k2_edge_cases(args.seed + 21)
+    e_host_mis = 0
+    for label, q, bias, R, targets2, g_open, g_ext in edges:
+        arrs, slots = k2_direct_inputs(q, bias, targets2, R)
+        x2 = {k: torch.from_numpy(v).cuda() for k, v in arrs.items()}
+        scratch = torch.empty((slots, 2, len(arrs["t_cat"]), 2),
+                              dtype=torch.int32, device="cuda")
+        o = sd.full_swipe(x2["t_cat"], x2["targets"], x2["q_cat"],
+                          x2["bias_cat"], x2["reqs"], x2["pairs"], m32,
+                          g_open + g_ext, g_ext, R, scratch,
+                          torch.zeros((1, len(targets2)), dtype=torch.int32,
+                                      device="cuda"))
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets2],
+                                    m.matrix32, g_open, g_ext)
+        e_host_mis += int((o[0].cpu().numpy()
+                           != np.array([r[0] for r in ref])).sum())
+    print(f"K2 parity at the kernel's interface: {len(edges)} queries (R "
+          f"1..16 with 1, 31 and 32R - 1 padding rows, 2-16 strips, "
+          f"low-complexity runs with gaps 1/1), kernel vs host DP "
+          f"mismatches {e_host_mis}")
+    # blocks whose warps hold pairs of several queries (one profile round
+    # per query; FullSweep.pack never makes them, the kernel takes them)
+    qs, bs, ts, R, arrs, slots = k2_mixed_inputs(args.seed + 22)
+    x2 = {k: torch.from_numpy(v).cuda() for k, v in arrs.items()}
+    scratch = torch.empty((slots, 2, len(arrs["t_cat"]), 2),
+                          dtype=torch.int32, device="cuda")
+    outs = [fn(x2["t_cat"], x2["targets"], x2["q_cat"], x2["bias_cat"],
+               x2["reqs"], x2["pairs"], m32, go, ge, R, scratch,
+               torch.zeros((len(qs), len(ts)), dtype=torch.int32,
+                           device="cuda"))
+            for fn in (sd.full_swipe, sd.full_swipe_plain)]
+    mix_mis = diff("k2", [outs[0]], [outs[1]])
+    got = outs[0].cpu().numpy()
+    for qi, ti in arrs["pairs"]:
+        q, t = qs[qi], ts[ti]
+        ref = banded_swipe_batch_np(q, bs[qi], [(t, -(len(t) - 1), len(q))],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        mix_mis += int(got[qi, ti] != ref[0][0])
+    print(f"K2 parity, blocks of mixed queries: {len(arrs['pairs'])} pairs "
+          f"of {len(qs)} queries (lengths {[len(q) for q in qs]}, R {R}), "
+          f"kernel vs plain and host DP mismatches {mix_mis}")
+    if k2_mis or k2_host_mis or e_host_mis or mix_mis:
         raise RuntimeError("K2 disagrees with its references")
 
     def np_diff(name, got, want):
@@ -870,10 +1126,19 @@ def main(argv=None):
     keep_o, best_o, _ = stage2_oracle(qw, sw, np.stack([wl, wr, pairs6[5]]),
                                       m2_np, 26, max_window)
     k6_host_mis += np_diff("k6", [keep_k, best_k], [keep_o, best_o])
+    edges6 = stage2_edge_cases(args.seed + 22)
+    for _label, qw, sw, meta, hid, mw in edges6:
+        xe = [torch.from_numpy(a).cuda() for a in (qw, sw, meta)]
+        got = s2.stage2_filter(*xe, m2, hid, mw)
+        k6_mis += diff("k6", got, s2.stage2_filter_plain(*xe, m2, hid, mw))
+        k6_host_mis += np_diff("k6", [g.cpu().numpy() for g in got],
+                               stage2_oracle(qw, sw, meta, m2_np, hid, mw))
     print(f"K6 parity: {n6} pairs x {w6} window letters ({int(got6[0].sum())} "
-          f"kept) and {len(pairs6[2])} pregathered pairs (max_window "
-          f"{max_window}, {int(keep_k.sum())} kept), kernel vs plain mismatches "
-          f"{k6_mis}, kernel vs numpy oracle mismatches {k6_host_mis}")
+          f"kept), {len(pairs6[2])} pregathered pairs (max_window "
+          f"{max_window}, {int(keep_k.sum())} kept) and {len(edges6)} edge "
+          f"batches (N 1 to 4,099, zero-width windows, hamming_id at the "
+          f"edge), kernel vs plain mismatches {k6_mis}, kernel vs numpy "
+          f"oracle mismatches {k6_host_mis}")
     if k6_mis or k6_host_mis:
         raise RuntimeError("K6 disagrees with its references")
 
@@ -964,6 +1229,7 @@ def main(argv=None):
         print(f"{route}: " + json.dumps(res))
         print(f"{route} host phases (s): "
               + json.dumps({k: round(v, 3) for k, v in phases}))
+        res["phases"] = dict(plog.prof)
         return res, data
 
 
@@ -1061,6 +1327,13 @@ def main(argv=None):
         out = both("blastp-swipe", ["blastp", "-q", qf, "-d", db, "--swipe",
                                     "-f", "6"], n_sw, "queries", "k2")
         paths["k2"] = out["card"][0]
+        for route in ("card", "host"):  # where the wall goes
+            res = out[route][0]
+            ph = {k: v for k, v in res["phases"].items()
+                  if k.startswith(("swipe.", "cli."))}
+            print(f"--swipe {route} route phases (s, of {res['wall_s']:.3f} "
+                  f"s wall; swipe.dispatch holds swipe.pack and "
+                  f"swipe.h2d_launch): " + json.dumps(ph))
 
     phase("SwipeSweep (diagonal-band full-matrix sweep, K5)")
     letters = [encode(s) for _, s in recs]
@@ -1132,20 +1405,27 @@ def main(argv=None):
     phase("kernel timing at main-path shapes")
     rows = []
 
-    def time_kernel(name, kern, plain, cells, ops, note, n_bytes, reps):
+    def time_kernel(name, kern, plain, cells, ops, note, n_bytes, reps,
+                    alone=None):
+        """Per call: reps calls of the wrapper launched from Python (the
+        column of PRs 1-5); kernel only: reps calls of ``alone`` (the
+        wrapper on preallocated outputs, where it takes them) replayed
+        from one CUDA graph."""
         got, want = kern(), plain()
         if diff(name, got, want):
             raise RuntimeError(f"{name} disagrees with its plain version on "
                                f"the main-path batch")
         kern()
         ms = cuda_ms(kern, reps)
+        only_ms = graph_ms(alone or kern, reps)
         plain_ms = cuda_ms(plain, 1)
         bound_ms, bound_by = bound(cells, ops, n_bytes)
         print(f"{name}: {cells} cells, {n_bytes} bytes; {ops} int32 ops/cell "
-              f"({note}); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"({note}); kernel {ms:.4f} ms per call, {only_ms:.4f} ms "
+              f"kernel only (CUDA graph), plain {plain_ms:.2f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library_ms null; {kind}, "
               f"{name_power}")
-        return ms, plain_ms, bound_ms, bound_by
+        return ms, plain_ms, bound_ms, bound_by, only_ms
 
     # K1 on the largest DeviceDP batch of the blastp run
     p = sd.pack_requests(captured["k1"][1], "cuda")
@@ -1209,12 +1489,13 @@ def main(argv=None):
     call1, cells1, bytes1, cls1 = k3_batch(strands[2 * r1: 2 * r1 + 2], one)
     print(f"K3 one-read batch: {len(one)} jobs over both strands of one "
           f"read, band classes {cls1}")
-    ms1, plain1, bound1, by1 = time_kernel(
+    ms1, plain1, bound1, by1, only1 = time_kernel(
         "k3", lambda: call1(s3.banded_swipe3),
         lambda: call1(s3.banded_swipe3_plain), cells1, K3_OPS, K3_NOTE,
         bytes1, 20)
-    print(f"K3 one-read batch: kernel {ms1:.4f} ms, bound {bound1:.5f} ms "
-          f"({by1}), {ms1 / bound1:.1f}x; {kind}, {name_power}")
+    print(f"K3 one-read batch: kernel {ms1:.4f} ms per call, {only1:.4f} ms "
+          f"kernel only, bound {bound1:.5f} ms ({by1}), {ms1 / bound1:.1f}x; "
+          f"{kind}, {name_power}")
     call3, cells3, bytes3, cls3 = k3_batch(strands, jobs3)
     print(f"K3 batch: {len(jobs3)} jobs of {len(strands) // 2} reads (the "
           f"largest window), band classes {cls3}; the long-reads run: "
@@ -1235,9 +1516,13 @@ def main(argv=None):
     scratch = torch.empty((L.slots, 2, len(blk.t_cat), 2), dtype=torch.int32,
                           device="cuda")
 
-    def k2_call(fn):
-        o = torch.zeros((blk.n_queries, blk.n_targets), dtype=torch.int32,
-                        device="cuda")
+    o2 = torch.zeros((blk.n_queries, blk.n_targets), dtype=torch.int32,
+                     device="cuda")
+
+    def k2_call(fn, o=None):
+        if o is None:
+            o = torch.zeros((blk.n_queries, blk.n_targets),
+                            dtype=torch.int32, device="cuda")
         return [fn(x2["t_cat"], x2["targets"], x2["q_cat"], x2["bias_cat"],
                    r2, p2, m32, go, ge, L.R, scratch, o)]
 
@@ -1249,7 +1534,36 @@ def main(argv=None):
     rows.append(("k2", time_kernel(
         "k2", lambda: k2_call(sd.full_swipe),
         lambda: k2_call(sd.full_swipe_plain), L.cells, K2_OPS, K2_NOTE,
-        n_bytes, 3)))
+        n_bytes, 3, alone=lambda: k2_call(sd.full_swipe, o2))))
+    # K2 over the whole --swipe path: busy time of its launches in the run
+    # (CUDA events around each), and all of them replayed from one graph
+    per2 = [(L_, *(torch.from_numpy(a).cuda() for a in (L_.reqs, L_.pairs)),
+             torch.empty((L_.slots, 2, len(blk.t_cat), 2), dtype=torch.int32,
+                         device="cuda")) for L_ in blk.launches]
+
+    def k2_path():
+        for L_, r_, p_, sc_ in per2:
+            sd.full_swipe(x2["t_cat"], x2["targets"], x2["q_cat"],
+                          x2["bias_cat"], r_, p_, m32, go, ge, L_.R, sc_, o2)
+
+    path_cells = sum(L_.cells for L_ in blk.launches)
+    path_bound, _ = bound(path_cells, K2_OPS, 0)
+    path_pre, _ = bound(path_cells, K2_PRE_DPX_OPS, 0)
+    busy_ms = paths["k2"]["device_busy_s"] * 1e3
+    path_only = graph_ms(k2_path, 2)
+    big_only = rows[-1][1][4]
+    big_pre, _ = bound(L.cells, K2_PRE_DPX_OPS, 0)
+    print(f"K2 before DPX ({K2_PRE_DPX_OPS} int32 ops/cell: "
+          f"{K2_PRE_DPX_NOTE}): largest launch bound {big_pre:.4f} ms, "
+          f"kernel only {big_only / big_pre:.2f}x")
+    print(f"K2 over the --swipe path: {len(blk.launches)} launches, "
+          f"{path_cells} cells, bound {path_bound:.4f} ms at {K2_OPS} "
+          f"ops/cell, {path_pre:.4f} ms at {K2_PRE_DPX_OPS} (before "
+          f"DPX); "
+          f"busy in the run {busy_ms:.4f} ms ({busy_ms / path_bound:.2f}x, "
+          f"{busy_ms / path_pre:.2f}x), kernel only {path_only:.4f} ms "
+          f"({path_only / path_bound:.2f}x, {path_only / path_pre:.2f}x); "
+          f"{kind}, {name_power}")
 
     # K4 on the benchmark's first row (benchmark.py's seed and sizes)
     rng4 = np.random.default_rng(0)
@@ -1291,7 +1605,8 @@ def main(argv=None):
             x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge),
         len(q4) * t4 * len(jobs4f), K45_OPS, K45_NOTE,
         sum(v.nbytes for v in pk4f.values()) + 3 * 4 * len(jobs4f), 20)
-    print(f"K4 full-matrix row: kernel {k4_full[0]:.4f} ms, bound "
+    print(f"K4 full-matrix row: kernel {k4_full[0]:.4f} ms per call, "
+          f"{k4_full[4]:.4f} ms kernel only, bound "
           f"{k4_full[2]:.5f} ms ({k4_full[3]}), {k4_full[0] / k4_full[2]:.1f}x; "
           f"{kind}, {name_power}")
 
@@ -1325,6 +1640,14 @@ def main(argv=None):
         "k6", lambda: s2.stage2_filter(*x6, m2, 26, w6 // 2),
         lambda: s2.stage2_filter_plain(*x6, m2, 26, w6 // 2),
         n6 * w6, K6_OPS, K6_NOTE, n_bytes, 20)))
+    for write in (True, False):
+        k6_cold = cold_ms(lambda: s2.stage2_filter(*x6, m2, 26, w6 // 2), 20,
+                          write)
+        print(f"K6 cold (the L2 flushed before each launch by "
+              f"{'writing' if write else 'reading'} {COLD_BYTES >> 20} MB, "
+              f"median of 20): {k6_cold:.4f} ms, "
+              f"{k6_cold / rows[-1][1][2]:.2f}x the bytes bound; warm kernel "
+              f"only {rows[-1][1][4]:.4f} ms; {kind}, {name_power}")
 
     meta = {
         "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
@@ -1359,7 +1682,8 @@ def main(argv=None):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    } for k, (ms, plain_ms, bound_ms, bound_by) in rows]}))
+        "kernel_only_ms": only_ms,
+    } for k, (ms, plain_ms, bound_ms, bound_by, only_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

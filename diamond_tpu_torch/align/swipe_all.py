@@ -69,15 +69,19 @@ def swipe_all_protein(qblock, tblock, cfg) -> dict:
     from diamond_tpu_torch.masking.tantan import Tantan
     from diamond_tpu_torch.search.pipeline import mask_block
     from diamond_tpu_torch.stats.cbs import hauser_bias_i8
+    from diamond_tpu_torch.utils.log import padd, perf_counter
 
+    t0 = perf_counter()
     cfg.matrix.set_db_letters(cfg.db_letters or tblock.n_letters)
     if cfg.masking == "tantan":
         masker = Tantan(cfg.matrix.matrix32)
         mask_block(tblock, masker)
         if qblock is not tblock:
             mask_block(qblock, masker)
+    t0 = padd("swipe.mask", t0)
     m = cfg.matrix
     disp = _device_swipe_dispatch(qblock, tblock, cfg)
+    t0 = padd("swipe.dispatch", t0)
     host_pre = None
     if disp is not None:
         # host long-sequence tail runs WHILE the chip computes the
@@ -107,7 +111,9 @@ def swipe_all_protein(qblock, tblock, cfg) -> dict:
             host_pre[qi] = (metas_h, np.fromiter(
                 (int(np.asarray(r).flat[0]) for r in res_h),
                 dtype=np.int64, count=len(metas_h)))
+        padd("swipe.host_tail", t0)
         S = pending.wait()
+    t0 = perf_counter()
     results = {}
     for qi in range(len(qblock)):
         q = qblock.seq(qi)
@@ -124,6 +130,7 @@ def swipe_all_protein(qblock, tblock, cfg) -> dict:
             [(0, q)], len(q), {0: i8}, tblock, cfg, dev_scores=dev_q)
         if matches:
             results[qi] = matches
+    padd("swipe.finish", t0)  # e-values, culling, traceback per query
     return results
 
 

@@ -351,11 +351,13 @@ def _device(command: str) -> str:
 def cmd_blastp(args):
     from diamond_tpu_torch.search.config import SearchConfig
     from diamond_tpu_torch.search.pipeline import Pipeline
+    from diamond_tpu_torch.utils.log import ptimer
 
     check_ported(args)
     device = _device("blastp")
-    qb = load_block(args.query)
-    tb, taxonomy = load_block(args.db, with_taxonomy=True)
+    with ptimer("cli.load"):
+        qb = load_block(args.query)
+        tb, taxonomy = load_block(args.db, with_taxonomy=True)
     tb, taxonomy, db_letters = apply_taxon_filter(tb, taxonomy,
                                                    args.taxonlist,
                                                    args.taxon_exclude)
@@ -390,14 +392,15 @@ def cmd_blastp(args):
         results = swipe_all_protein(qb, tb, cfg)
     else:
         results = Pipeline(cfg, qb, tb, device=device).search()
-    out = _open_out(args)
-    write_results(out, args.outfmt, results, qb, tb, cfg.matrix,
-                  taxonomy=taxonomy, db_path=args.db,
-                  max_evalue=cfg.max_evalue,
-                  hauser=_cbs_hauser(cfg.comp_based_stats),
-                  invocation=" ".join(sys.argv))
-    if out is not sys.stdout:
-        out.close()
+    with ptimer("cli.write"):
+        out = _open_out(args)
+        write_results(out, args.outfmt, results, qb, tb, cfg.matrix,
+                      taxonomy=taxonomy, db_path=args.db,
+                      max_evalue=cfg.max_evalue,
+                      hauser=_cbs_hauser(cfg.comp_based_stats),
+                      invocation=" ".join(sys.argv))
+        if out is not sys.stdout:
+            out.close()
 
 
 def cmd_blastx(args):

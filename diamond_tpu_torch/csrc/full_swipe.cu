@@ -4,16 +4,15 @@
 // Replaces the TPU kernel diamond_tpu/ops/swipe_device.py:735-832
 // (_make_kernel_full + full_swipe_pallas_sweep).  Same function, pair for
 // pair: local affine-gap DP over the whole q_len x t_len matrix, state
-// indexed by query row, profile matrix[q][t] + bias[i], F by lazy prefix
-// max, H, E and F floored at 0; output the best score only.  That equals
+// indexed by query row, profile matrix[q][t] + bias[i], H, E and F floored
+// at 0; output the best score only.  That equals
 // ops/banded_swipe.banded_swipe_batch_np with the band [-(t_len-1), q_len).
 //
-// What bounds it on the card: int32 ALU work.  The recurrence needs 11
-// int32 operations per cell and the DP state (H and E of one column of a
-// strip) stays in registers; each column reads one target letter, so
-// device-memory traffic is one byte per column against 11 x q_len
-// operations.  Tensor cores do not apply (max-plus).  What the design does
-// about it:
+// What bounds it on the card: int32 ALU issue.  The DP state (H and E of
+// one column of a strip) stays in registers and each column reads one
+// target letter, so device-memory traffic is one byte per column against
+// q_len cells of work.  Tensor cores do not apply (max-plus).  What the
+// design does about it:
 //   - one warp per pair; lane l holds query rows [l*R, (l+1)*R) of a strip
 //     of 32*R rows in registers (R a template parameter, 1..16, chosen per
 //     query so that a strip wastes fewer than 32 rows), and walks the target
@@ -22,10 +21,32 @@
 //     row (H, and the vertical gap leaving it) is written per column to the
 //     pair's scratch, and the next strip's lane 0 reads it back 32 columns at
 //     a time, so no query-length cap follows from registers;
-//   - the diagonal moves down one row by one __shfl_up_sync, F by an in-lane
-//     scan plus a 5-step __shfl_up_sync scan; E stays in place (row-indexed);
-//   - the 32x32 matrix sits transposed in shared memory, so 32 lanes reading
-//     one target letter's row by their query letters hit distinct banks;
+//   - the column step (column() below): the diagonal moves down one row by
+//     one __shfl_up_sync, E stays in place (row-indexed), and the vertical
+//     gap F crosses lanes lazily, as in warp_band.cuh: each lane runs its R
+//     rows with nothing entering, one shuffle hands its outgoing F to the
+//     next lane (lane 0 takes the gap the strip above leaves), and only when
+//     an __any_sync vote finds a lane whose outgoing F rose does a 5-step
+//     max-plus warp scan carry the gaps on;
+//   - the max-plus steps are Hopper's DPX instructions (__viaddmax_s32_relu
+//     = max(a + b, c, 0), __viaddmax_s32, __vimax3_s32), and cur0 - go is
+//     computed once per cell for both passes of F;
+//   - the score of a cell is one shared-memory load at an immediate
+//     offset: the block's WARPS warps walk pairs of one query (FullSweep
+//     packs them so), and before each strip the block writes that strip's
+//     query profile to shared memory, int16 with the bias folded in (a
+//     matrix entry plus an int8 bias; FullSweep holds the matrix within
+//     +-16,000), laid out [target letter][k][lane] so that 32 lanes read 32
+//     consecutive halves; a block whose warps hold several queries takes
+//     one round per query;
+//   - rows past q_len in the last strip score NEG16 and run unmasked.  No
+//     value flows up out of them: the diagonal and F move down a row, E
+//     stays in its row, and a strip with padding rows is the query's last,
+//     so it carries nothing on.  Their own H never raises the best: with a
+//     score <= 0, a padding row's H is at most the largest of the diagonal
+//     H above it, its E and the F entering it, and each of those is at most
+//     an H already counted (F and E at most go below one), so the best, a
+//     maximum, is unchanged;
 //   - each lane keeps its own best, reduced once at the end;
 //   - the caller orders pairs by the cells a warp walks, most first, so long
 //     warps start first and short ones fill in behind them.
@@ -38,18 +59,101 @@
 
 namespace {
 
-constexpr int INVALID = INT32_MIN;  // query row outside the query
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int NEG = -(1 << 20);
+constexpr int NEG16 = -(1 << 14);   // profile score past the query
 constexpr int WARPS = 4;            // warps (pairs) per block
 
-// Query letter and bias of row i packed into one int (bias * 32 + letter),
-// or INVALID outside [0, q_len).
-__device__ __forceinline__ int load_q(const int8_t* __restrict__ q,
-                                      const int8_t* __restrict__ qb,
-                                      int q_len, int i) {
-  if (i >= q_len) return INVALID;
-  return int(qb[i]) * 32 + (int(q[i]) & 31);
+// One target column of a strip: H, E updated in place; sc[k] the score of
+// row r0 + k; d_in the H entering row r0 from above at the previous column;
+// c_f the F the strip above leaves (lane 0 only).  Returns F leaving the
+// lane's last row.
+template <int R>
+__device__ __forceinline__ int column(int (&H)[R], int (&E)[R],
+                                      const int (&sc)[R], int d_in, int c_f,
+                                      int lane, int go, int ge, int& lbest) {
+  int cur0[R], T[R];
+  int fo = 0;  // the lane's outgoing F with nothing entering its first row
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int diag = k == 0 ? d_in : H[k - 1];
+    cur0[k] = __viaddmax_s32_relu(diag, sc[k], E[k]);
+    T[k] = cur0[k] - go;
+    fo = __viaddmax_s32_relu(fo, -ge, T[k]);
+  }
+  // the previous lane's outgoing F (the strip above's, for lane 0) enters
+  // this lane's first row
+  int f_in = __shfl_up_sync(FULL, fo, 1);
+  if (lane == 0) f_in = c_f;
+  const int kge = R * ge;  // decay of a vertical gap across one lane
+  const int nf = __viaddmax_s32(f_in, -kge, fo);
+  if (__any_sync(FULL, nf != fo)) {  // carry on exactly: inclusive scan
+    int incl = nf;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl = __viaddmax_s32(o, -off * kge, incl);
+    }
+    f_in = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) f_in = c_f;
+  }
+  int f = f_in;  // F entering row k
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int hn = max(cur0[k], f);
+    f = __viaddmax_s32_relu(f, -ge, T[k]);
+    E[k] = __viaddmax_s32_relu(E[k], -ge, hn - go);
+    H[k] = hn;
+  }
+#pragma unroll
+  for (int k = 0; k + 1 < R; k += 2)
+    lbest = __vimax3_s32(lbest, H[k], H[k + 1]);
+  if (R & 1) lbest = max(lbest, H[R - 1]);
+  return f;
+}
+
+// Walks strip s of one pair against the whole target: lane l's rows
+// s * 32R + l * R .. + R - 1, their scores from the strip's query profile
+// prof[(a * R + k) * 32 + l] (target letter a, row l * R + k); cin the strip
+// above's carries (or null), cout this strip's (or null).
+template <int R>
+__device__ __forceinline__ void walk_strip(const int16_t* prof,
+                                           const int8_t* __restrict__ t,
+                                           int t_len, const int2* cin,
+                                           int2* cout, int lane, int go,
+                                           int ge, int& lbest) {
+  int H[R], E[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    H[k] = 0;
+    E[k] = 0;
+  }
+  int tword = 0;
+  int2 cword = make_int2(0, 0);
+  int d_prev = 0;  // H of the row above the strip, previous column
+  for (int j = 0; j < t_len; ++j) {
+    const int src = j & 31;
+    if (src == 0) {  // 32 target letters (and carries), one per lane
+      const int jj = j + lane;
+      tword = jj < t_len ? (int(t[jj]) & 31) : 0;
+      if (cin) cword = jj < t_len ? cin[jj] : make_int2(0, 0);
+    }
+    const int16_t* p = prof + __shfl_sync(FULL, tword, src) * (32 * R) + lane;
+    int c_h = 0, c_f = 0;  // the strip above: its last row's H and F
+    if (cin) {             // warp-uniform
+      c_h = __shfl_sync(FULL, cword.x, src);
+      c_f = __shfl_sync(FULL, cword.y, src);
+    }
+    // diagonal: H of row i - 1 at the previous column
+    int d_in = __shfl_up_sync(FULL, H[R - 1], 1);
+    if (lane == 0) d_in = d_prev;
+    int sc[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) sc[k] = p[k * 32];
+    const int f_out = column<R>(H, E, sc, d_in, c_f, lane, go, ge, lbest);
+    if (cout && lane == 31) cout[j] = make_int2(H[R - 1], f_out);
+    d_prev = c_h;
+  }
+  __syncwarp();  // this strip's carries are read by the next
 }
 
 template <int R>
@@ -63,106 +167,67 @@ full_swipe_kernel(const int8_t* __restrict__ t_cat,
                   const int32_t* __restrict__ matrix, int n_pairs,
                   int n_out_cols, int go, int ge, int2* __restrict__ scratch,
                   int t_letters, int32_t* __restrict__ out) {
+  constexpr int ROWS = 32 * R;
   __shared__ int32_t Mt[32 * 32];  // Mt[t * 32 + q] = matrix[q][t]
+  __shared__ int16_t prof[32 * ROWS];
+  __shared__ int sreq[WARPS];
   for (int k = threadIdx.x; k < 32 * 32; k += blockDim.x)
     Mt[(k & 31) * 32 + (k >> 5)] = matrix[k];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pair = blockIdx.x * WARPS + warp;
+  const bool active = pair < n_pairs;
+  const int req = active ? pairs[2 * pair] : -1;
+  const int tgt = active ? pairs[2 * pair + 1] : 0;
+  if (lane == 0) sreq[warp] = req;
   __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (pair >= n_pairs) return;
-  const int req = pairs[2 * pair], tgt = pairs[2 * pair + 1];
-  const int q_off = reqs[3 * req], q_len = reqs[3 * req + 1];
-  const int slot = reqs[3 * req + 2];
-  const int t_off = targets[2 * tgt], t_len = targets[2 * tgt + 1];
-  const int8_t* t = t_cat + t_off;
-  const int8_t* q = q_cat + q_off;
-  const int8_t* qb = bias_cat + q_off;
-  constexpr int ROWS = 32 * R;
-  const int strips = (q_len + ROWS - 1) / ROWS;
-  // strip carries: buffer (s & 1) holds strip s's last row per column
-  int2* carry0 = nullptr;
-  int2* carry1 = nullptr;
-  if (slot >= 0) {
-    carry0 = scratch + (size_t(slot) * 2) * t_letters + t_off;
-    carry1 = carry0 + t_letters;
-  }
-
+  const int t_off = active ? targets[2 * tgt] : 0;
+  const int t_len = active ? targets[2 * tgt + 1] : 0;
   int lbest = 0;
-  for (int s = 0; s < strips; ++s) {
-    const int r0 = s * ROWS + lane * R;
-    int H[R], E[R], P[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      H[k] = 0;
-      E[k] = 0;
-      P[k] = load_q(q, qb, q_len, r0 + k);
+  // one round per distinct query of the block (one when FullSweep packed
+  // it); every warp of the block builds the profiles, the query's walk
+  for (int w0 = 0; w0 < WARPS; ++w0) {
+    const int qr = sreq[w0];
+    bool seen = qr < 0;
+    for (int w = 0; w < w0; ++w) seen |= sreq[w] == qr;
+    if (seen) continue;  // block-uniform
+    const int q_off = reqs[3 * qr], q_len = reqs[3 * qr + 1];
+    const int slot = reqs[3 * qr + 2];
+    const int8_t* q = q_cat + q_off;
+    const int8_t* qb = bias_cat + q_off;
+    const int strips = (q_len + ROWS - 1) / ROWS;
+    // strip carries: buffer (s & 1) holds strip s's last row per column
+    int2* carry0 = nullptr;
+    int2* carry1 = nullptr;
+    if (slot >= 0) {
+      carry0 = scratch + (size_t(slot) * 2) * t_letters + t_off;
+      carry1 = carry0 + t_letters;
     }
-    const int2* cin = s > 0 ? ((s - 1) & 1 ? carry1 : carry0) : nullptr;
-    int2* cout = s + 1 < strips ? (s & 1 ? carry1 : carry0) : nullptr;
-    int tword = 0;
-    int2 cword = make_int2(0, 0);
-    int d_prev = 0;  // H of the row above the strip, previous column
-    for (int j = 0; j < t_len; ++j) {
-      const int src = j & 31;
-      if (src == 0) {  // 32 target letters (and carries), one per lane
-        const int jj = j + lane;
-        tword = jj < t_len ? (int(t[jj]) & 31) : 0;
-        if (cin) cword = jj < t_len ? cin[jj] : make_int2(0, 0);
+    for (int s = 0; s < strips; ++s) {
+      __syncthreads();  // no warp reads the previous strip's profile
+      for (int e = threadIdx.x; e < ROWS; e += blockDim.x) {
+        const int l = e & 31, k = e >> 5;  // strip row l * R + k
+        const int r = s * ROWS + l * R + k;
+        int16_t* p = prof + k * 32 + l;
+        if (r < q_len) {
+          const int32_t* mc = Mt + (int(q[r]) & 31);
+          const int b = qb[r];
+#pragma unroll 8
+          for (int a = 0; a < 32; ++a) p[a * ROWS] = int16_t(mc[a * 32] + b);
+        } else {
+#pragma unroll 8
+          for (int a = 0; a < 32; ++a) p[a * ROWS] = int16_t(NEG16);
+        }
       }
-      const int32_t* mrow = Mt + 32 * __shfl_sync(FULL, tword, src);
-      int c_h = 0, c_f = 0;  // the strip above: its last row's H and F
-      if (cin) {             // warp-uniform
-        c_h = __shfl_sync(FULL, cword.x, src);
-        c_f = __shfl_sync(FULL, cword.y, src);
-      }
-
-      // diagonal: H of row i - 1 at the previous column
-      int d_in = __shfl_up_sync(FULL, H[R - 1], 1);
-      if (lane == 0) d_in = d_prev;
-      // g = cur0 - go + row * ge, prefix max over the strip; the gap the
-      // strip above leaves (c_f, entering row 0) starts lane 0's scan as
-      // the term of row -1, so the warp scan carries it to every lane
-      int cur0[R], g[R];
-      int run = lane == 0 ? c_f - ge : NEG;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int diag = k == 0 ? d_in : H[k - 1];
-        const int sc = P[k] != INVALID ? mrow[P[k] & 31] + (P[k] >> 5) : NEG;
-        cur0[k] = max(max(diag + sc, E[k]), 0);
-        run = max(run, cur0[k] - go + (lane * R + k) * ge);
-        g[k] = run;
-      }
-      // warp scan of the lane totals -> exclusive prefix for this lane
-      int incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl = max(incl, o);
-      }
-      int excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = NEG;
-      // F[k]: the vertical gap leaving row k (entering row k + 1)
-      int F[R];
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        F[k] = max(max(g[k], excl) - (lane * R + k) * ge, 0);
-      int f_in = __shfl_up_sync(FULL, F[R - 1], 1);
-      if (lane == 0) f_in = c_f;
-
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int fs = k == 0 ? f_in : F[k - 1];
-        const int hn = P[k] != INVALID ? max(cur0[k], fs) : 0;
-        lbest = max(lbest, hn);
-        E[k] = max(max(E[k] - ge, hn - go), 0);
-        H[k] = hn;
-      }
-      if (cout && lane == 31) cout[j] = make_int2(H[R - 1], F[R - 1]);
-      d_prev = c_h;
+      __syncthreads();
+      if (req != qr) continue;
+      const int2* cin = s > 0 ? ((s - 1) & 1 ? carry1 : carry0) : nullptr;
+      int2* cout = s + 1 < strips ? (s & 1 ? carry1 : carry0) : nullptr;
+      walk_strip<R>(prof, t_cat + t_off, t_len, cin, cout, lane, go, ge,
+                    lbest);
     }
-    __syncwarp();  // this strip's carries are read by the next
   }
+  if (!active) return;
   const int best = __reduce_max_sync(FULL, lbest);
   if (lane == 0) out[size_t(req) * n_out_cols + tgt] = best;
 }

@@ -26,6 +26,10 @@ from diamond_tpu_torch.utils.device import resolve_device
 NEG = -(10 ** 9)
 WINDOW_LEFT = 16   # fingerprint window [pos-16, pos+32)
 FP_LEN = 48
+# the kernel's most window rows: two buffers of both windows' [W][128]
+# tiles beside its 4 KB matrix in 227 KB of shared memory (csrc/stage2.cu,
+# MAX_SMEM)
+MAX_ROWS = 446
 
 
 def _k6():
@@ -39,8 +43,8 @@ def stage2_filter(qw8, sw8, meta, m2, hamming_id: int, max_window: int):
     letters 0..31); meta int32 [3, N] rows (wl, wr, cutoff); m2 int32
     [32, 32].  Returns (keep bool [N], best int32 [N], ident int32 [N]).
 
-    CUDA tensors launch the kernel (counted in ``stage2_filter.launches``);
-    CPU tensors run ``stage2_filter_plain``."""
+    CUDA tensors launch the kernel (counted in ``stage2_filter.launches``),
+    which takes W <= MAX_ROWS; CPU tensors run ``stage2_filter_plain``."""
     check_tensors(qw8.device, ("qw8", qw8, torch.int8), ("sw8", sw8, torch.int8),
                   ("meta", meta, torch.int32), ("m2", m2, torch.int32))
     if qw8.dim() != 2 or sw8.shape != qw8.shape:
@@ -56,9 +60,14 @@ def stage2_filter(qw8, sw8, meta, m2, hamming_id: int, max_window: int):
         return stage2_filter_plain(qw8, sw8, meta, m2, hamming_id, max_window)
     if dev.type != "cuda":
         raise ValueError(f"stage2_filter runs on cuda or cpu, not {dev}")
-    keep = torch.zeros(N, dtype=torch.bool, device=dev)
-    best = torch.zeros(N, dtype=torch.int32, device=dev)
-    ident = torch.zeros(N, dtype=torch.int32, device=dev)
+    if W > MAX_ROWS:
+        raise ValueError(f"stage2_filter's kernel takes windows of at most "
+                         f"{MAX_ROWS} rows (max_window {MAX_ROWS // 2}), got "
+                         f"{W}")
+    # the kernel writes all three for every pair: no memset
+    keep = torch.empty(N, dtype=torch.bool, device=dev)
+    best = torch.empty(N, dtype=torch.int32, device=dev)
+    ident = torch.empty(N, dtype=torch.int32, device=dev)
     if N == 0:
         return keep, best, ident
     if W * N >= 2 ** 31:

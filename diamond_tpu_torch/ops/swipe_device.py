@@ -41,7 +41,7 @@ from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
 from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND, pad_band,
                                                  uniform_walk)
 from diamond_tpu_torch.utils.device import resolve_device
-from diamond_tpu_torch.utils.log import pcount
+from diamond_tpu_torch.utils.log import pcount, ptimer
 
 NEG = -(2 ** 20)
 MAX_DEVICE_BAND = 512        # 16 rows per lane of one warp
@@ -414,6 +414,7 @@ TGT_COLS = 2                          # targets[t] = (t_off, t_len)
 SWEEP_REQ_COLS = 3                    # reqs[r] = (q_off, q_len, slot)
 PAIR_COLS = 2                         # pairs[k] = (req, tgt)
 MAX_SWEEP_PAIRS = 1 << 22             # pairs per launch
+SWEEP_BLOCK_PAIRS = 4                 # pairs (warps) of one block of the kernel
 
 
 def sweep_shape(q_len: int):
@@ -462,8 +463,11 @@ def full_swipe(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
 
     t_cat int8 [Lt] with targets int32 [nt, 2] rows (t_off, t_len); q_cat /
     bias_cat int8 [Lq] with reqs int32 [m, 3] rows (q_off, q_len, slot);
-    pairs int32 [n, 2] rows (req, tgt); matrix32 int32 [32, 32]; go = gap
-    open + extend, ge = gap extend.  Every query of the launch has rows per
+    pairs int32 [n, 2] rows (req, tgt); matrix32 int32 [32, 32], entries
+    within +-FullSweep.MAX_SCORE; go = gap open + extend, ge = gap extend.
+    Each run of SWEEP_BLOCK_PAIRS pairs is one block of the kernel, fastest
+    when its pairs share one query (one profile a strip; FullSweep.pack
+    orders them so).  Every query of the launch has rows per
     lane ``rows_per_lane`` (``sweep_shape``); a query of more than one strip
     carries each strip's last row to the next through its ``slot`` of
     scratch int32 [slots, 2, Lt, 2] (slot -1: one strip).  Writes each
@@ -588,9 +592,13 @@ class FullSweep:
     MAX_LEN = 8192       # walked targets
     MAX_ROW_LEN = 8192   # query rows (16 strips)
     SCRATCH_BYTES = 1 << 30  # strip carries of one launch
+    MAX_SCORE = 16_000   # matrix entries: the kernel's profile is int16
 
     def __init__(self, matrix32, gap_open: int, gap_extend: int,
                  device: str | None = None):
+        if np.abs(np.asarray(matrix32)).max() > self.MAX_SCORE:
+            raise ValueError(f"FullSweep takes matrix entries within "
+                             f"+-{self.MAX_SCORE}")
         self.device = torch.device(resolve_device(device))
         self._m32 = torch.tensor(np.asarray(matrix32), dtype=torch.int32,
                                  device=self.device)
@@ -662,13 +670,22 @@ class FullSweep:
         L.reqs = np.zeros((b.n_queries, SWEEP_REQ_COLS), np.int32)
         L.reqs[:, 2] = -1
         L.reqs[g, 0], L.reqs[g, 1], L.reqs[g, 2] = q_off[g], q_lens[g], slot
-        qq = np.repeat(g, len(tl))
-        tt = np.tile(np.arange(len(tl), dtype=np.int64), len(g))
-        work = shapes[qq, 1] * tl[tt]
-        order = np.argsort(-work, kind="stable")
-        L.pairs = np.stack([qq[order], tt[order]], axis=1).astype(np.int32)
-        L.cells = int((q_lens[qq] * tl[tt]).sum())
-        L.walk_cells = int((work * 32 * R).sum())
+        # the kernel's blocks each take SWEEP_BLOCK_PAIRS pairs of one query:
+        # every query's targets, longest first, in runs of that many (the
+        # last run repeats its last target, which writes the same score
+        # twice), the runs of all queries ordered by the cells a warp
+        # walks, most first
+        W = SWEEP_BLOCK_PAIRS
+        ts = np.argsort(-tl, kind="stable")
+        ts = np.concatenate([ts, np.repeat(ts[-1:], -len(ts) % W)])
+        runs = ts.reshape(-1, W)
+        work = shapes[g, 1][:, None] * tl[runs[:, 0]][None, :]
+        order = np.argsort(-work.reshape(-1), kind="stable")
+        qq = np.repeat(g[order // len(runs)], W)
+        tt = runs[order % len(runs)].reshape(-1)
+        L.pairs = np.stack([qq, tt], axis=1).astype(np.int32)
+        L.cells = int(q_lens[g].sum() * tl.sum())
+        L.walk_cells = int((shapes[qq, 1] * tl[tt]).sum() * 32 * R)
         return L
 
     def run_block(self, queries, tblock, t_order):
@@ -684,24 +701,27 @@ class FullSweep:
         global dispatch_count, dispatch_cells, dispatch_wait_s
         kernel = kernel or full_swipe
         t0 = time.perf_counter()
-        b = self.pack(queries, tblock, t_order)
+        with ptimer("swipe.pack"):
+            b = self.pack(queries, tblock, t_order)
         dev = self.device
-        # every copy to the card before the first launch: a pageable copy
-        # waits for the stream, so a copy after a launch would wait for it
-        x = {k: torch.from_numpy(getattr(b, k)).to(dev)
-             for k in ("t_cat", "targets", "q_cat", "bias_cat")}
-        per = [(L, torch.from_numpy(L.reqs).to(dev),
-                torch.from_numpy(L.pairs).to(dev)) for L in b.launches]
-        out = torch.zeros((b.n_queries, b.n_targets), dtype=torch.int32,
-                          device=dev)
-        for L, reqs, pairs in per:
-            scratch = torch.empty((L.slots, 2, len(b.t_cat), 2),
-                                  dtype=torch.int32, device=dev)
-            kernel(x["t_cat"], x["targets"], x["q_cat"], x["bias_cat"],
-                   reqs, pairs, self._m32, self.go, self.ge, L.R, scratch,
-                   out)
-            dispatch_count += 1
-            dispatch_cells += L.walk_cells
+        with ptimer("swipe.h2d_launch"):
+            # every copy to the card before the first launch: a pageable
+            # copy waits for the stream, so a copy after a launch would
+            # wait for it
+            x = {k: torch.from_numpy(getattr(b, k)).to(dev)
+                 for k in ("t_cat", "targets", "q_cat", "bias_cat")}
+            per = [(L, torch.from_numpy(L.reqs).to(dev),
+                    torch.from_numpy(L.pairs).to(dev)) for L in b.launches]
+            out = torch.zeros((b.n_queries, b.n_targets), dtype=torch.int32,
+                              device=dev)
+            for L, reqs, pairs in per:
+                scratch = torch.empty((L.slots, 2, len(b.t_cat), 2),
+                                      dtype=torch.int32, device=dev)
+                kernel(x["t_cat"], x["targets"], x["q_cat"], x["bias_cat"],
+                       reqs, pairs, self._m32, self.go, self.ge, L.R,
+                       scratch, out)
+                dispatch_count += 1
+                dispatch_cells += L.walk_cells
         dispatch_wait_s += time.perf_counter() - t0
         return _SweepPending(out)
 
@@ -713,7 +733,9 @@ class _SweepPending:
     def wait(self):
         global dispatch_wait_s
         t0 = time.perf_counter()
-        res = self._out.cpu().numpy()  # the readback is the only blocking step
+        # the readback is the only blocking step: it waits for the kernels
+        with ptimer("swipe.wait_readback"):
+            res = self._out.cpu().numpy()
         dispatch_wait_s += time.perf_counter() - t0
         return res
 

@@ -123,6 +123,20 @@ def ptimer(label: str):
     return _ptimer_on(label) if _PROF else _ptimer_off(label)
 
 
+perf_counter = time.perf_counter
+
+
+def padd(label: str, t0: float) -> float:
+    """ptimer for a span that is no one block: adds the time since t0 (a
+    perf_counter() reading) to label and returns perf_counter(), the start
+    of the next span."""
+    now = time.perf_counter()
+    if _PROF:
+        prof[label] += now - t0
+        prof_calls[label] += 1
+    return now
+
+
 def pcount(label: str, n):
     """Accumulate a quantity (cells, jobs, bytes) under the profiler."""
     if _PROF:

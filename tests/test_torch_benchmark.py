@@ -23,7 +23,7 @@ from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
 from diamond_tpu_torch.benchmark import run_benchmark  # noqa: E402
 from diamond_tpu_torch.stats.evalue_device import evalue_torch  # noqa: E402
 from diamond_tpu_torch.stats.score_matrix import ScoreMatrix as PortMatrix  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RENAMED = {"(pallas)": "(cuda)", "(XLA one-hot)": "(torch one-hot)",

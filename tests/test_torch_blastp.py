@@ -76,19 +76,54 @@ def j2_db(tmp_path_factory):
     return str(path)
 
 
-CASES = [(inp, fmt) for inp in ("q2-self", "j2-q2", "synthetic")
+@pytest.fixture(scope="module")
+def q2_dmnd(tmp_path_factory):
+    """q2.faa as a .dmnd made by the reference's makedb (j2.faa holds an
+    empty sequence, which makedb refuses)."""
+    d = tmp_path_factory.mktemp("dmnd")
+    _run("diamond_tpu", ["makedb", "--in", f"{GOLD}/q2.faa", "-d",
+                         str(d / "q2")], d)
+    return str(d / "q2.dmnd")
+
+
+# (input, -f, further options, whether round 1 goes through DeviceDP)
+CASES = [pytest.param(inp, fmt, (), True, id=f"{inp}-{fmt}")
+         for inp in ("q2-self", "j2-q2", "synthetic")
          for fmt in ("6", "0", "5", "101")]
+# formats and options beyond the defaults, on j2.faa against q2 + j2, and
+# q2.faa against itself as a .dmnd from the reference's makedb
+CASES += [pytest.param("j2-q2", fmt, extra, dp, id=f"j2-q2-{fmt}-{label}")
+          for fmt, extra, dp, label in (
+              ("103", (), True, "default"), ("104", (), True, "default"),
+              ("6", ("--fast",), True, "fast"),
+              ("6", ("--sensitive",), True, "sensitive"),
+              ("6", ("--ultra-sensitive",), True, "ultra-sensitive"),
+              ("6", ("--comp-based-stats", "0"), True, "cbs0"),
+              ("6", ("--comp-based-stats", "2"), True, "cbs2"),
+              ("6", ("--comp-based-stats", "3"), True, "cbs3"),
+              # a matrix adjusted per target: the DP runs on the host, as
+              # in the reference
+              ("6", ("--comp-based-stats", "4"), False, "cbs4"),
+              ("6", ("--masking", "0"), True, "masking0"),
+              ("6", ("-k", "1", "--evalue", "1e-5"), True, "k1-evalue"),
+              ("6", ("--id", "40", "--query-cover", "50"), True,
+               "id-qcover"),
+              ("6", ("--max-hsps", "0"), True, "max-hsps0"))]
+CASES += [pytest.param("q2-dmnd", fmt, (), True, id=f"q2-dmnd-{fmt}")
+          for fmt in ("6", "0")]
 
 
-@pytest.mark.parametrize("inp,fmt", CASES)
-def test_blastp_port_matches_reference(inp, fmt, synthetic, j2_db, tmp_path):
+@pytest.mark.parametrize("inp,fmt,extra,dp", CASES)
+def test_blastp_port_matches_reference(inp, fmt, extra, dp, synthetic, j2_db,
+                                       request, tmp_path):
     q, d = {"q2-self": (f"{GOLD}/q2.faa", f"{GOLD}/q2.faa"),
             "j2-q2": (f"{GOLD}/j2.faa", j2_db),
-            "synthetic": synthetic}[inp]
-    args = ["blastp", "-q", q, "-d", d, "-f", fmt]
+            "synthetic": synthetic}.get(inp) or (
+        f"{GOLD}/q2.faa", request.getfixturevalue("q2_dmnd"))
+    args = ["blastp", "-q", q, "-d", d, "-f", fmt, *extra]
     port, log = _run("diamond_tpu_torch", args, tmp_path)
     ref, _ = _run("diamond_tpu", args, tmp_path)
     assert port.strip(), "empty output"
     assert port == ref
     dispatches = int(log.rsplit("DISPATCHES=", 1)[1].split()[0])
-    assert dispatches > 0
+    assert dispatches > 0 if dp else dispatches == 0

@@ -33,8 +33,12 @@ ALLOWED = {
                             "with its own band cap, then finished (steps "
                             "3-6) in order", 177),
     "align/swipe_all.py": ("_device_swipe_dispatch builds the port's "
-                           "FullSweep on the resolved device; --mesh raises",
-                           17),
+                           "FullSweep on the resolved device; --mesh raises; "
+                           "DIAMOND_TPU_PROF phase timers (padd) for "
+                           "masking, the dispatch, the host tail and the "
+                           "per-query finish", 30),
+    "utils/log.py": ("padd: a phase timer for a span that is no one block",
+                     20),
 }
 # written for the port (no verbatim counterpart kept)
 REWRITTEN = {"benchmark.py", "cli.py", "ops/__init__.py",

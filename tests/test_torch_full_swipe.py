@@ -18,7 +18,7 @@ from diamond_tpu.ops.swipe_device import full_swipe_pallas_sweep  # noqa: E402
 from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
 from diamond_tpu_torch.data.block import Block  # noqa: E402
 from diamond_tpu_torch.ops import swipe_device as sd  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,15 @@
 """The port's CUDA kernels on the card (``pytest -m gpu tests/test_torch_*.py``).
 
 The banded-SWIPE kernel (K1, every band class), the 3-frame kernel (K3,
-read by read and many reads in one batch), the full-matrix sweep (K2), the
-uniform-band kernel (K4, its warp and CTA paths), the diagonal-band sweep
-(K5, also on queries above one strip, positive biases, tied bests, score-0
-rows and pad cells that score) and the stage-2 filter (K6) against their plain PyTorch versions on the same card
-tensors and against the host DP or a numpy oracle; exact integer equality.
+read by read and many reads in one batch), the full-matrix sweep (K2, also
+at its own interface: every rows-per-lane class with padding rows, 2-16
+strips, low-complexity runs with small gaps), the uniform-band kernel (K4,
+its warp and CTA paths), the diagonal-band sweep (K5, also on queries above
+one strip, positive biases, tied bests, score-0 rows and pad cells that
+score) and the stage-2 filter (K6, also on pair counts of no multiple of
+16, zero-width windows and hamming_id at the edge) against their plain
+PyTorch versions on the same card tensors and against the host DP or a
+numpy oracle; exact integer equality.
 Skips without a card: a CUDA kernel has no CPU mode.
 """
 import os
@@ -278,3 +282,105 @@ def test_stage2_kernel_matches_plain_and_oracle_on_gpu():
     np.testing.assert_array_equal(keep, keep_o)
     np.testing.assert_array_equal(best, best_o)
     assert keep.any() and not keep.all()
+
+
+@pytest.mark.gpu
+def test_full_swipe_kernel_edges_on_gpu():
+    """K2 at its own interface: every rows-per-lane class with 1, 31 and
+    32R - 1 padding rows in its one strip (the rows past the query run
+    unmasked), queries of 2 to 16 strips, low-complexity runs with gap
+    open 1 and extend 1 (vertical gaps cross lanes and strips, the vote's
+    rare path), bias on and off, and one launch whose blocks hold pairs of
+    several queries (two of them multi-strip): equal to the plain version
+    and the full-band host DP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    m32 = torch.from_numpy(m.matrix32.astype(np.int32)).cuda()
+    smoke = _smoke()
+    seen = set()
+    for label, q, bias, R, targets, gap_open, gap_ext in \
+            smoke.k2_edge_cases(seed=21):
+        arrs, slots = smoke.k2_direct_inputs(q, bias, targets, R)
+        x = {k: torch.from_numpy(v).cuda() for k, v in arrs.items()}
+        scratch = torch.empty((slots, 2, len(arrs["t_cat"]), 2),
+                              dtype=torch.int32, device="cuda")
+        outs = []
+        for fn in (sd.full_swipe, sd.full_swipe_plain):
+            o = torch.zeros((1, len(targets)), dtype=torch.int32,
+                            device="cuda")
+            outs.append(fn(x["t_cat"], x["targets"], x["q_cat"],
+                           x["bias_cat"], x["reqs"], x["pairs"], m32,
+                           gap_open + gap_ext, gap_ext, R, scratch, o))
+        assert torch.equal(outs[0], outs[1]), label
+        ref = banded_swipe_batch_np(q, bias, [(t, -(len(t) - 1), len(q))
+                                              for t in targets],
+                                    m.matrix32, gap_open, gap_ext)
+        assert outs[0][0].tolist() == [r[0] for r in ref], label
+        strips = -(-len(q) // (32 * R))
+        seen.add((R, strips * 32 * R - len(q)))
+        seen.add(("strips", strips))
+    assert {(R, 32 * R - 1) for R in range(1, 17)} <= seen
+    assert {(R, 1) for R in range(1, 17)} <= seen
+    assert {("strips", s) for s in (2, 3, 5, 9, 16)} <= seen
+
+    qs, bs, ts, R, arrs, slots = smoke.k2_mixed_inputs(seed=22)
+    x = {k: torch.from_numpy(v).cuda() for k, v in arrs.items()}
+    scratch = torch.empty((slots, 2, len(arrs["t_cat"]), 2),
+                          dtype=torch.int32, device="cuda")
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    outs = [fn(x["t_cat"], x["targets"], x["q_cat"], x["bias_cat"],
+               x["reqs"], x["pairs"], m32, go, ge, R, scratch,
+               torch.zeros((len(qs), len(ts)), dtype=torch.int32,
+                           device="cuda"))
+            for fn in (sd.full_swipe, sd.full_swipe_plain)]
+    assert torch.equal(outs[0], outs[1])
+    blocks = arrs["pairs"][:len(arrs["pairs"]) // 4 * 4, 0].reshape(-1, 4)
+    assert any(len(set(b)) > 2 for b in blocks.tolist())
+    got = outs[0].cpu().numpy()
+    for qi, ti in arrs["pairs"]:
+        q, t = qs[qi], ts[ti]
+        ref = banded_swipe_batch_np(q, bs[qi], [(t, -(len(t) - 1), len(q))],
+                                    m.matrix32, m.gap_open, m.gap_extend)
+        assert got[qi, ti] == ref[0][0], (qi, ti)
+
+
+@pytest.mark.gpu
+def test_stage2_kernel_edges_on_gpu():
+    """K6 at its own interface: pair counts that are no multiple of 16 or
+    of a block, windows clipped to zero width, hamming_id at the edge of
+    the identity count, windows of the kernel's most rows: equal to the
+    plain version and the numpy oracle; a window of more rows is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import stage2_device as s2
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    m2 = np.ascontiguousarray(m.matrix32[:32, :32], dtype=np.int32)
+    smoke = _smoke()
+    kept = set()
+    for label, qw, sw, meta, hid, max_window in \
+            smoke.stage2_edge_cases(seed=22):
+        x = [torch.from_numpy(a).cuda() for a in (qw, sw, meta, m2)]
+        launches = s2.stage2_filter.launches
+        got = s2.stage2_filter(*x, hid, max_window)
+        assert s2.stage2_filter.launches == launches + 1
+        want = s2.stage2_filter_plain(*x, hid, max_window)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+        oracle = smoke.stage2_oracle(qw, sw, meta, m2, hid, max_window)
+        for g, w in zip(got, oracle):
+            np.testing.assert_array_equal(g.cpu().numpy(), w, err_msg=label)
+        assert not got[1][meta[0] + meta[1] == 0].any()  # zero-width
+        kept.add(bool(got[0][0]))
+    assert kept == {True, False}
+    W = s2.MAX_ROWS + 2
+    x = [torch.zeros((W, 5), dtype=torch.int8, device="cuda")] * 2
+    meta = torch.zeros((3, 5), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        s2.stage2_filter(*x, meta, torch.from_numpy(m2).cuda(), 26, W // 2)

@@ -19,8 +19,8 @@ from diamond_tpu.ops.stage12_jax import _stage1_matmul_kernel  # noqa: E402
 from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
 from diamond_tpu_torch.ops import stage2_device as s2  # noqa: E402
 from diamond_tpu_torch.ops.stage12 import TILE_Q, TILE_S, stage1_matmul  # noqa: E402
-from tests.test_stage2_pallas import _letters, _oracle  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from test_stage2_pallas import _letters, _oracle  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _pairs(seed, N=700):

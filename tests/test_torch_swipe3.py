@@ -16,7 +16,7 @@ from diamond_tpu.ops.swipe3_pallas import (banded_swipe3_pallas,  # noqa: E402
                                            prepare_swipe3_batch)
 from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
 from diamond_tpu_torch.ops import swipe3_device as s3  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FS = 15
 

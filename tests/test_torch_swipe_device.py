@@ -15,7 +15,7 @@ import diamond_tpu.ops.swipe_device as jsd  # noqa: E402
 from diamond_tpu.ops.banded_swipe import banded_swipe_batch_np  # noqa: E402
 from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
 from diamond_tpu_torch.ops import swipe_device as sd  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _requests(seed, n_queries=4, max_jobs=12, max_band=300):

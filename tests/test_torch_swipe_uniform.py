@@ -26,7 +26,7 @@ from diamond_tpu_torch.align import extend as pext  # noqa: E402
 from diamond_tpu_torch.ops import swipe_uniform as su  # noqa: E402
 from diamond_tpu_torch.ops import swipe_uniform_device as sud  # noqa: E402
 from diamond_tpu_torch.stats.score_matrix import ScoreMatrix as PortMatrix  # noqa: E402
-from tests.torch_threads import one_torch_thread  # noqa: E402,F401
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _query_jobs(seed, qlen, n_jobs, max_band, max_tl=60):
