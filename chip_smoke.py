@@ -7,9 +7,9 @@
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
-     full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu; one nvcc
-     per source, all at once, for sm_90a; registers and spills from ptxas)
-     and the port's native host library;
+     full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu,
+     stage12.cu; one nvcc per source, all at once, for sm_90a; registers
+     and spills from ptxas) and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
      (K1) on requests in every band class (rows per lane 1..16), counted
@@ -33,19 +33,29 @@ Phases; each one fails the run on error:
      its plain version; the stage-2 filter (K6) at the benchmark's shape,
      on pregathered pairs of a padded count and on edge batches (pair
      counts of no multiple of 16, zero-width windows, hamming_id at the
-     edge), against a numpy oracle;
+     edge), against a numpy oracle; the fused stage-1/2 filter (D1) on
+     200,000 random pairs (also against the native host pass at window
+     48) and on edge batches (pair counts of no multiple of a block,
+     windows 1-48, delimiters at and around the seed, masked letters with
+     high bits, hamming_id 0 to 49);
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
-     protein set the size of nr_10k (10,000 sequences, ~4 M letters);
+     protein set the size of nr_10k (10,000 sequences, ~4 M letters), on
+     the card, on the host, and a third time with stage 1/2 on the card
+     (DIAMOND_TPU_TORCH_STAGE12=1: D1 must launch and the output equal
+     the other two); ``seed.stage12`` and its sub-phases printed per route;
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
      (~1 indel per kb) against it; >= 95 % must hit their source protein;
-  6. blastx: default six-frame search of seeded 300-1500 nt reads (its DP
-     is on the host, as in the reference; run once);
+  6. blastx: default six-frame search of 500 seeded 300-1500 nt reads
+     (its DP is on the host, as in the reference; run once);
   7. blastp --swipe: the first 32 proteins against the whole set, its
      phase timers printed (masking, dispatch, pack, copies and launches,
      host tail, readback, per-query finish, output);
      paths 4, 5 and 7 run once with the DP on the card and once with
      DIAMOND_TPU_TORCH_DEVICE_DP=0; the outputs must be identical and the
      path's kernel must have launched (counts set to 0 before each run);
+     the jobs whose band starts below diagonal -(t_len - 1) are counted
+     in the blastp and --swipe runs, K1's and the host DP's; then
+     ``makedb`` of the protein set and ``dbinfo`` of the result, timed;
   8. SwipeSweep: the first 4 proteins against the whole set through K5,
      scores held against K2's FullSweep on the same pairs;
   9. benchmark: ``diamond_tpu_torch.cli benchmark`` (its table printed);
@@ -61,7 +71,7 @@ Phases; each one fails the run on error:
      path); K2 also over the whole --swipe path, against its bound at 7
      int32 ops a cell (DPX counted) and at the 11 before DPX; K6 also cold
      (the L2 flushed before each launch by writing 256 MB, and by reading
-     them).
+     them); D1 on the largest launch of the stage-1/2 blastp run.
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -109,6 +119,15 @@ K45_NOTE = ("H+s, max E, max 0, H-go (shared by E and F), F-ge, max for F, "
 K6_OPS = 10
 K6_NOTE = ("matrix index, st+M, max 0, min 255, two window compares, window "
            "select, best max, letter compare, identity add")
+# D1 per pair, counted from csrc/stage12.cu, the walks as this run's data
+# makes them: a fingerprint letter, a letter examined by a clip walk, a
+# Kadane step (the function's arithmetic only: the matrix index counts 1 as
+# in K6, not the rotated layout's extra add and mask), and the keep test
+D1_FP_OPS, D1_WALK_OPS, D1_STEP_OPS, D1_KEEP_OPS = 4, 1, 6, 3
+D1_NOTE = ("48 fingerprint letters x 4 (xor, and, compare, add); each "
+           "letter a clip walk examines x 1 (its compare); each Kadane step "
+           "x 6 (two masks, matrix index, add-max-relu, min 255, best max); "
+           "3 for keep")
 
 
 def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
@@ -662,6 +681,133 @@ def stage2_oracle(qw8, sw8, meta, m2, hamming_id: int, max_window: int):
     return (ident >= hamming_id) & (best > cut), best, ident
 
 
+def stage12_case(seed: int, n: int, q_len: int = 20_000,
+                 s_len: int | None = None):
+    """Seeded stage-1/2 (D1) pairs over two letter blocks laid out like the
+    search's: 256 delimiters (31) at each end, 2 % delimiters inside, 10 %
+    of the letters (delimiters too) with a high bit set as masked letters
+    carry (32, 64 or 128: the clip compares the raw byte with 31, the rest
+    reads the low 5 bits); every third pair's target copies the query's
+    letters around the seed (it passes stage 1); windows of every width 1 to
+    48; delimiters put at qp itself, at qp - 1, at the last offset of the
+    window on either side and just past it (in q_len / 100 pairs, a sixth
+    of them each; before the letters are read, so every pair sees the
+    final blocks); cutoffs 0 to 59.  The target block holds 100 letters a
+    pair (30,000 at least), so the copies seldom overwrite each other.
+    Returns (q_letters, s_letters, qp, sp, windows, cutoffs)."""
+    rng = np.random.default_rng(seed)
+    s_len = s_len or max(30_000, 100 * n)
+
+    def block(k):
+        core = rng.integers(0, 20, k).astype(np.int8)
+        core[rng.random(k) < 0.02] = 31
+        pad = np.full(256, 31, np.int8)
+        return np.concatenate([pad, core, pad])
+
+    q_letters, s_letters = block(q_len), block(s_len)
+    qp = rng.integers(256, 256 + q_len, n).astype(np.int64)
+    sp = rng.integers(256, 256 + s_len, n).astype(np.int64)
+    windows = rng.integers(1, 49, n).astype(np.int64)
+    windows[:48] = np.arange(1, 49)[:n]
+    for k in range(0, n, 3):
+        lo, hi = max(0, qp[k] - 48), qp[k] + 48
+        s_letters[sp[k] - (qp[k] - lo): sp[k] + (hi - qp[k])] = \
+            q_letters[lo:hi]
+    # anchors next to a delimiter: about one pair in a hundred of the
+    # query block's letters, so the block keeps ~3 % delimiters
+    kind = np.where(rng.random(n) < q_len / 100 / n, rng.integers(0, 6, n),
+                    -1)
+    w = windows
+    for sel, at in ((kind == 0, qp), (kind == 1, qp - 1),
+                    (kind == 2, qp + w - 1), (kind == 3, qp - (w - 1)),
+                    (kind == 4, qp + w), (kind == 5, qp - w)):
+        q_letters[at[sel]] = 31
+    high = rng.random(len(q_letters)) < 0.1
+    q_letters[high] |= rng.choice(np.array([32, 64, -128], np.int8),
+                                  int(high.sum()))
+    high = rng.random(len(s_letters)) < 0.1
+    s_letters[high] |= rng.choice(np.array([32, 64, -128], np.int8),
+                                  int(high.sum()))
+    cutoffs = rng.integers(0, 60, n).astype(np.int32)
+    return q_letters, s_letters, qp, sp, windows, cutoffs
+
+
+STAGE12_EDGES = ((1, 0), (255, 11), (257, 26), (4099, 48), (4099, 49),
+                 (20_000, 11))
+
+
+def stage12_edge_cases(seed: int, edges=STAGE12_EDGES):
+    """(label, case, hamming_id) for D1's edge batches: pair counts of no
+    multiple of a block (1 to 20,000; stage12_case's pairs) and hamming_id
+    0, at the search's 11 and 26, 48 (the whole fingerprint) and 49 (no
+    pair passes stage 1)."""
+    return [(f"N {n}, hamming_id {hid}", stage12_case(seed + k, n), hid)
+            for k, (n, hid) in enumerate(edges)]
+
+
+STAGE12_JOIN_GROUPS = ((1, 1), (3, 5), (2, 300), (20, 40), (9, 130),
+                       (1, 700), (40, 17), (2, 2), (600, 260), (17, 129))
+
+
+def stage12_join_case(seed: int, sizes=STAGE12_JOIN_GROUPS,
+                      L: int = 60_000):
+    """A seed join for Stage12Device.run_join over one seeded letter block
+    (256 delimiters at each end, 120 inside, 20 copied 96-letter
+    stretches): groups of the given (query, target) occurrence counts that
+    straddle MATMUL_MIN_PAIRS (512) and split tiles on both sides, two big
+    groups with occurrences on a copied stretch so that pairs pass stage 1
+    in the one-hot product; windows 1 to 48, cutoffs 0 to 39.
+    Returns (letters, join, qp, sp, windows, cutoffs)."""
+    from diamond_tpu_torch.search.stages import SeedJoin, expand_pairs
+
+    rng = np.random.default_rng(seed)
+    letters = rng.integers(0, 20, L + 512).astype(np.int8)
+    letters[:256] = 31
+    letters[-256:] = 31
+    letters[rng.integers(300, L, 120)] = 31
+    src = rng.integers(300, L - 100, 40)
+    for a, b in zip(src[::2], src[1::2]):
+        letters[b - 48:b + 48] = letters[a - 48:a + 48]
+    q_pos, s_pos, q_start, s_start = [], [], [0], [0]
+    for nq, ns in sizes:
+        q_pos.extend(rng.integers(300, L, nq))
+        s_pos.extend(rng.integers(300, L, ns))
+        q_start.append(len(q_pos))
+        s_start.append(len(s_pos))
+    join = SeedJoin(keys=np.arange(len(sizes), dtype=np.uint64),
+                    q_start=np.array(q_start, dtype=np.int64),
+                    q_pos=np.array(q_pos, dtype=np.int64),
+                    s_start=np.array(s_start, dtype=np.int64),
+                    s_pos=np.array(s_pos, dtype=np.int64))
+    for g in (5, 8):  # big groups: some occurrences on the copied stretch
+        join.q_pos[join.q_start[g]:join.q_start[g + 1]:2] = src[0]
+        join.s_pos[join.s_start[g]:join.s_start[g + 1]:3] = src[1]
+    qp, sp = expand_pairs(join)
+    windows = rng.integers(1, 49, len(qp)).astype(np.int64)
+    cutoffs = rng.integers(0, 40, len(qp)).astype(np.int32)
+    return letters, join, qp, sp, windows, cutoffs
+
+
+def d1_ops(q_blk, s_blk, qp, sp, windows) -> int:
+    """D1's int32 operations on these pairs (the D1_*_OPS counts), the clip
+    walks and the Kadane walk as long as this data makes them."""
+    import torch
+
+    from diamond_tpu_torch.ops.stage12_device import PLAIN_CHUNK, _gather_clip
+
+    w = windows.long()
+    wl, wr = torch.empty_like(w), torch.empty_like(w)
+    for lo in range(0, len(qp), PLAIN_CHUNK):
+        hi = lo + PLAIN_CHUNK
+        _, _, _, wl[lo:hi], wr[lo:hi] = _gather_clip(
+            q_blk, s_blk, qp[lo:hi].long(), sp[lo:hi].long(), w[lo:hi])
+    left = torch.where(wl < w, wl + 1, (w - 1).clamp(min=0))
+    right = torch.where(wr < w, wr + 1, w)
+    return int(len(qp) * (48 * D1_FP_OPS + D1_KEEP_OPS)
+               + D1_WALK_OPS * int((left + right).sum())
+               + D1_STEP_OPS * int((wl + wr).sum()))
+
+
 def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -777,7 +923,7 @@ def main(argv=None):
                          "whole)")
     ap.add_argument("--long-reads", type=int, default=300,
                     help="reads of the blastx --long-reads run")
-    ap.add_argument("--short-reads", type=int, default=2000,
+    ap.add_argument("--short-reads", type=int, default=500,
                     help="reads of the default blastx run")
     ap.add_argument("--swipe-queries", type=int, default=32,
                     help="queries of the blastp --swipe run")
@@ -816,9 +962,14 @@ def main(argv=None):
     from diamond_tpu_torch.cli import main as cli_main
     from diamond_tpu_torch.data.block import Block
     from diamond_tpu_torch.align import extend as pext
+    from diamond_tpu_torch.align import swipe_all as pswipe
+    from diamond_tpu_torch.align import wave as pwave
+    from diamond_tpu_torch.search import pipeline as ppipe
+    from diamond_tpu_torch.search import stages as pstages
     from diamond_tpu_torch.benchmark import FULL as BENCH
     from diamond_tpu_torch.constants.alphabet import encode
     from diamond_tpu_torch.ops import _cuda
+    from diamond_tpu_torch.ops import stage12_device as d1m
     from diamond_tpu_torch.ops import stage2_device as s2
     from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
@@ -830,7 +981,7 @@ def main(argv=None):
     # -- 2. build -----------------------------------------------------------
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
-               "swipe_sweep", "stage2")
+               "swipe_sweep", "stage2", "stage12")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -839,7 +990,7 @@ def main(argv=None):
         for line in _cuda.build_log.get(k, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {k}:", line.strip())
-    sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6()
+    sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6(), d1m._k_d1()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -1142,14 +1293,75 @@ def main(argv=None):
     if k6_mis or k6_host_mis:
         raise RuntimeError("K6 disagrees with its references")
 
+    phase("kernel parity: D1")
+    # D1: the fused stage-1/2 filter over letter blocks on the card, on
+    # random pairs (also against the native host pass at window 48) and on
+    # edge batches
+    def d1_tensors(case):
+        q, s, qp, sp, win, cut = case
+        return ([torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in (q, s)] + [m2]
+                + [torch.from_numpy(a.astype(np.int32)).cuda()
+                   for a in (qp, sp, win, cut)])
+
+    d1_case = stage12_case(args.seed + 40, 200_000)
+    xd = d1_tensors(d1_case)
+    got = d1m.stage12_pairs(*xd, 11)
+    d1_mis = diff("d1", got, d1m.stage12_pairs_torch(*xd, 11))
+    d1_kept = int(got[0].sum())
+    q, s, qp, sp, _, _ = d1_case
+    w48 = np.full(len(qp), 48, np.int64)
+    cut48 = np.full(len(qp), 19, np.int32)
+    keep48, best48 = d1m.Stage12Device(m.matrix32, device="cuda").run(
+        q, s, qp, sp, w48, cut48, 11)
+    nat1 = native.stage1_filter_native(q, s, qp, sp, 11)
+    nat2 = native.stage2_scores_native(q, s, qp, sp, m.matrix32, 48, True)
+    d1_host_mis = int((keep48 != (nat1 & (nat2 > cut48))).sum()
+                      + (best48[keep48] != np.minimum(nat2, 255)[keep48]).sum())
+    edges_d1 = stage12_edge_cases(args.seed + 41)
+    for _label, case, hid in edges_d1:
+        xe = d1_tensors(case)
+        d1_mis += diff("d1", d1m.stage12_pairs(*xe, hid),
+                       d1m.stage12_pairs_torch(*xe, hid))
+    # run_join on the card: groups over 512 pairs through the one-hot
+    # product, its tiles split over three products, against the CPU's
+    jl, join, jqp, jsp, jwin, jcut = stage12_join_case(args.seed + 42)
+    tiles_per_product = d1m.GROUP_TILES
+    d1m.GROUP_TILES = 100
+    try:
+        want_j = d1m.Stage12Device(m.matrix32, device="cpu").run_join(
+            jl, jl, join, jqp, jsp, jwin, jcut, 11)
+        d1m.reset_dispatch_stats()
+        got_j = d1m.Stage12Device(m.matrix32, device="cuda").run_join(
+            jl, jl, join, jqp, jsp, jwin, jcut, 11)
+        products = d1m.dispatch_count - 1
+    finally:
+        d1m.GROUP_TILES = tiles_per_product
+    d1_join_mis = int((got_j[0] != want_j[0]).sum()
+                      + (got_j[1] != want_j[1]).sum())
+    print(f"D1 parity: {len(qp)} random pairs ({d1_kept} kept), kernel vs "
+          f"plain mismatches and {len(edges_d1)} edge batches (N 1 to "
+          f"20,000, windows 1-48, delimiters at and around the seed, masked "
+          f"letters, hamming_id 0 to 49): {d1_mis}; at window 48 against "
+          f"the native host pass (keep, and best where kept; "
+          f"{int(keep48.sum())} kept): {d1_host_mis}; run_join on the card "
+          f"against the CPU's ({len(jqp)} pairs, {products} one-hot "
+          f"products, {int(got_j[0].sum())} kept): {d1_join_mis}")
+    if products != 3 or not got_j[0].any():
+        raise RuntimeError("D1 run_join case missed its split products")
+    if d1_mis or d1_host_mis or d1_join_mis:
+        raise RuntimeError("D1 disagrees with its references")
+
     # -- 4-9. the paths, each with every launch count set to 0 just before --
     wrappers = dict(k1=sd.banded_swipe_multi, k3=s3.banded_swipe3,
                     k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
-                    k5=sd.swipe_sweep, k6=s2.stage2_filter)
+                    k5=sd.swipe_sweep, k6=s2.stage2_filter,
+                    d1=d1m.stage12_pairs)
 
     def zero_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        spy_d1.launches = 0
 
     def launch_counts():
         return {k: fn.launches for k, fn in wrappers.items()}
@@ -1169,12 +1381,46 @@ def main(argv=None):
 
     run_many, launch = sd.DeviceDP.run_many, sd.DeviceDP.launch
     scores3, dispatch_block = s3.swipe3_scores, sd.FullSweep.dispatch_block
+    stage12_pairs = d1m.stage12_pairs
+    k1_low = [0]  # K1 jobs of a run whose band starts below -(t_len - 1)
+    host_dp = [0, 0]  # host DP jobs of a run: such jobs, all jobs
+
+    def count_host(jobs):
+        jobs = list(jobs)
+        host_dp[0] += sum(d0 < -(len(t) - 1) for t, d0, _ in jobs)
+        host_dp[1] += len(jobs)
+
+    def spy_host_dp(q, bias, jobs, *a, **kw):
+        """The host DP of one query (banded_swipe_batch_np: the native
+        scorer of native/src/banded_swipe.cc), its jobs counted."""
+        count_host(jobs)
+        return banded_swipe_batch_np(q, bias, jobs, *a, **kw)
+
+    pack_jobs = pwave._pack_jobs
+
+    def spy_pack_jobs(items, state):
+        """The host DP of an extension round (the same native scorer's
+        multi-query score-only and traceback calls), its jobs counted."""
+        count_host(req.jobs[k] for _, req, ks, _ in items for k in ks)
+        return pack_jobs(items, state)
 
     def spy_k1(self, requests):
         n = sum(len(j) for _, _, j in requests)
+        k1_low[0] += sum(d0 < -(len(t) - 1)
+                         for _, _, jobs in requests for t, d0, _ in jobs)
         if n > captured.get("k1", (-1,))[0]:
             captured["k1"] = (n, requests)
         return run_many(self, requests)
+
+    def spy_d1(*a, **kw):
+        """D1 as Stage12Device launches it, timed; the largest launch's
+        per-pair inputs copied (they are views of reused buffers).  The
+        wrapper counts its launches on the name its module binds, so they
+        land here and drive() hands them back."""
+        if a[3].shape[0] > captured.get("d1", (-1,))[0]:
+            captured["d1"] = (a[3].shape[0],
+                              list(a[:3]) + [x.clone() for x in a[3:7]], a[7])
+        return timed(stage12_pairs)(*a, **kw)
 
     def spy_k3(strands, jobs, *a):
         n = sum(len(t) * (d1 - d0) for _, t, d0, d1 in jobs)
@@ -1187,14 +1433,21 @@ def main(argv=None):
         return dispatch_block(self, queries, tblock, t_order,
                               kernel=timed(sd.full_swipe))
 
-    def drive(route, argv, out, host):
-        """One CLI run with every count and counter set to 0 just before."""
+    def drive(route, argv, out, host, stage12=False, patches=()):
+        """One CLI run with every count and counter set to 0 just before;
+        stage12 puts stage 1/2 on the card (DIAMOND_TPU_TORCH_STAGE12=1);
+        patches, (object, name, value) triples, hold for the run."""
         if host:
             os.environ["DIAMOND_TPU_TORCH_DEVICE_DP"] = "0"
         else:  # the default route
             os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
+        if stage12:
+            os.environ["DIAMOND_TPU_TORCH_STAGE12"] = "1"
         sd.reset_dispatch_stats()
+        d1m.reset_dispatch_stats()
         s3.dispatch_count = 0
+        k1_low[0] = 0
+        host_dp[:] = [0, 0]
         zero_counts()
         plog.prof_calls.clear()
         plog.prof.clear()
@@ -1204,13 +1457,20 @@ def main(argv=None):
             with Patched((sd.DeviceDP, "run_many", spy_k1),
                          (sd.DeviceDP, "launch", timed(launch)),
                          (s3, "swipe3_scores", spy_k3),
-                         (sd.FullSweep, "dispatch_block", spy_k2)):
+                         (sd.FullSweep, "dispatch_block", spy_k2),
+                         (d1m, "stage12_pairs", spy_d1),
+                         *[(mod, "banded_swipe_batch_np", spy_host_dp)
+                           for mod in (pext, pwave, pswipe)],
+                         (pwave, "_pack_jobs", spy_pack_jobs), *patches):
                 t0 = time.perf_counter()
                 rc = cli_main(argv + ["-o", out])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
             os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
+            os.environ.pop("DIAMOND_TPU_TORCH_STAGE12", None)
+        stage12_pairs.launches += spy_d1.launches
+        spy_d1.launches = 0
         if rc:
             raise RuntimeError(f"{' '.join(argv[:1])} exited {rc}")
         data = open(out, "rb").read()
@@ -1224,6 +1484,12 @@ def main(argv=None):
             device_cells=plog.prof_calls.get("ext.device_cells", 0),
             host_score_cells=plog.prof_calls.get("ext.score_cells", 0),
             host_tb_cells=plog.prof_calls.get("ext.tb_cells", 0),
+            k1_low_start_jobs=k1_low[0],
+            host_dp_low_start_jobs=host_dp[0], host_dp_jobs=host_dp[1],
+            s12_pairs=plog.prof_calls.get("seed.s12_pairs", 0),
+            s12_dispatches=d1m.dispatch_count,
+            s12_kernel_pairs=d1m.dispatch_pairs,
+            s12_wait_s=d1m.dispatch_wait_s,
             max_memory_allocated=torch.cuda.max_memory_allocated())
         phases = sorted(plog.prof.items(), key=lambda kv: -kv[1])[:10]
         print(f"{route}: " + json.dumps(res))
@@ -1254,9 +1520,55 @@ def main(argv=None):
             raise RuntimeError(f"{name}: the path never launched {kernel}")
         if any(host["launches"].values()):
             raise RuntimeError(f"{name}: the host route launched a kernel")
+        if card["launches"]["d1"]:
+            raise RuntimeError(f"{name}: stage 1/2 went to the card unasked")
         print(f"{name}: outputs identical ({card['lines']} lines, sha "
               f"{card['sha']}); {kernel} launches {card['launches'][kernel]}")
         return out
+
+    inside_s12 = [False]
+
+    def s12_span(label, fn):
+        """fn, its time added to plog.prof[label] while the stage-1/2
+        device route (Pipeline._stage12_device) runs."""
+        def wrapper(*a, **kw):
+            if not inside_s12[0]:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                plog.prof[label] += time.perf_counter() - t0
+        return wrapper
+
+    s12_route = ppipe.Pipeline._stage12_device
+
+    def s12_inside(self, *a, **kw):
+        inside_s12[0] = True
+        try:
+            return s12_route(self, *a, **kw)
+        finally:
+            inside_s12[0] = False
+
+    # the host steps of the stage-1/2 device route, each timed on its own
+    s12_spans = [(ppipe.Pipeline, "_stage12_device", s12_inside)] + [
+        (obj, name, s12_span(f"s12.{name}", getattr(obj, name)))
+        for obj, name in ((pstages, "expand_pairs"),
+                          (Block, "global_to_local"),
+                          (pstages, "clip_window"),
+                          (ppipe, "left_most_filter_batch"),
+                          (ppipe, "_hit_rows"))]
+
+    def low_starts(name, out):
+        """The jobs whose band starts below diagonal -(t_len - 1), which
+        the native host scorer gets wrong from ~107 band rows up (ROADMAP
+        section 3): K1's on the card route, the host DP's on both."""
+        c, h = out["card"][0], out["host"][0]
+        print(f"{name}: jobs whose band starts below -(t_len - 1): K1 "
+              f"{c['k1_low_start_jobs']} of {c['device_jobs']}; host DP "
+              f"{c['host_dp_low_start_jobs']} of {c['host_dp_jobs']} (card "
+              f"route), {h['host_dp_low_start_jobs']} of {h['host_dp_jobs']}"
+              f" (host route)")
 
     recs = make_proteins(seed=args.seed)
     n_letters = sum(len(s) for _, s in recs)
@@ -1282,6 +1594,34 @@ def main(argv=None):
         if len(selfs) != n_q:
             raise RuntimeError("a query did not find itself")
         paths["k1"] = out["card"][0]
+        # the third route: stage 1/2 on the card too (D1)
+        res, data = drive("blastp card-stage12",
+                          ["blastp", "-q", qf, "-d", db, "-f", "6"],
+                          os.path.join(tmp, "blastp_s12.out"), host=False,
+                          stage12=True, patches=s12_spans)
+        report("blastp card-stage12", res, n_q, "queries")
+        if data != out["card"][1]:
+            raise RuntimeError("blastp: stage 1/2 on the card changed the "
+                               "output")
+        if res["launches"]["d1"] == 0 or res["launches"]["k1"] == 0:
+            raise RuntimeError("blastp card-stage12: D1 or K1 never launched")
+        print(f"blastp card-stage12: output identical (sha {res['sha']}); "
+              f"D1 launches {res['launches']['d1']}, Stage12Device "
+              f"dispatches {res['s12_dispatches']} (one-hot products and "
+              f"kernel chunks), pairs through D1 {res['s12_kernel_pairs']}, "
+              f"wait {res['s12_wait_s']:.4f} s")
+        paths["d1"] = res
+        for route, r in (("card", out["card"][0]), ("host", out["host"][0]),
+                         ("card-stage12", res)):
+            ph = {k: round(r["phases"].get(k, 0.0), 4) for k in (
+                "seed.stage12", "seed.s12_native", "seed.s12_expand",
+                "seed.s12_card", "seed.s12_leftmost")}
+            print(f"blastp {route} stage 1/2 (s, of {r['wall_s']:.2f} s "
+                  f"wall): {json.dumps(ph)}; seed.s12_pairs {r['s12_pairs']}")
+        print("blastp card-stage12, the device route's host steps (s): "
+              + json.dumps({k: round(v, 4) for k, v in res["phases"].items()
+                            if k.startswith("s12.")}))
+        low_starts("blastp", out)
 
         phase("blastx --long-reads (3-frame DP, K3)")
         reads = make_reads(recs, args.long_reads, 2000, 8000,
@@ -1327,6 +1667,7 @@ def main(argv=None):
         out = both("blastp-swipe", ["blastp", "-q", qf, "-d", db, "--swipe",
                                     "-f", "6"], n_sw, "queries", "k2")
         paths["k2"] = out["card"][0]
+        low_starts("--swipe", out)
         for route in ("card", "host"):  # where the wall goes
             res = out[route][0]
             ph = {k: v for k, v in res["phases"].items()
@@ -1334,6 +1675,26 @@ def main(argv=None):
             print(f"--swipe {route} route phases (s, of {res['wall_s']:.3f} "
                   f"s wall; swipe.dispatch holds swipe.pack and "
                   f"swipe.h2d_launch): " + json.dumps(ph))
+
+        phase("database commands (makedb, dbinfo; host code)")
+        import contextlib
+        import io
+
+        dbp = os.path.join(tmp, "db")
+        t0 = time.perf_counter()
+        rc = cli_main(["makedb", "--in", db, "-d", dbp])
+        t_makedb = time.perf_counter() - t0
+        info = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(info):
+            rc = rc or cli_main(["dbinfo", "-d", dbp + ".dmnd"])
+        t_dbinfo = time.perf_counter() - t0
+        info = info.getvalue().splitlines()
+        print(f"makedb: {len(recs)} sequences, {os.path.getsize(dbp + '.dmnd')}"
+              f" bytes in {t_makedb:.2f} s; dbinfo {t_dbinfo:.2f} s: {info}")
+        if rc or info[1:] != [f"Sequences = {len(recs)}",
+                              f"Letters = {n_letters}"]:
+            raise RuntimeError("makedb/dbinfo failed or miscounted")
 
     phase("SwipeSweep (diagonal-band full-matrix sweep, K5)")
     letters = [encode(s) for _, s in recs]
@@ -1406,11 +1767,12 @@ def main(argv=None):
     rows = []
 
     def time_kernel(name, kern, plain, cells, ops, note, n_bytes, reps,
-                    alone=None):
+                    alone=None, unit="cell"):
         """Per call: reps calls of the wrapper launched from Python (the
         column of PRs 1-5); kernel only: reps calls of ``alone`` (the
         wrapper on preallocated outputs, where it takes them) replayed
-        from one CUDA graph."""
+        from one CUDA graph.  ``cells`` units of work (cells, or D1's
+        pairs) at ``ops`` int32 operations each."""
         got, want = kern(), plain()
         if diff(name, got, want):
             raise RuntimeError(f"{name} disagrees with its plain version on "
@@ -1420,8 +1782,8 @@ def main(argv=None):
         only_ms = graph_ms(alone or kern, reps)
         plain_ms = cuda_ms(plain, 1)
         bound_ms, bound_by = bound(cells, ops, n_bytes)
-        print(f"{name}: {cells} cells, {n_bytes} bytes; {ops} int32 ops/cell "
-              f"({note}); kernel {ms:.4f} ms per call, {only_ms:.4f} ms "
+        print(f"{name}: {cells} {unit}s, {n_bytes} bytes; {ops:g} int32 ops/"
+              f"{unit} ({note}); kernel {ms:.4f} ms per call, {only_ms:.4f} ms "
               f"kernel only (CUDA graph), plain {plain_ms:.2f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), library_ms null; {kind}, "
               f"{name_power}")
@@ -1649,6 +2011,24 @@ def main(argv=None):
               f"{k6_cold / rows[-1][1][2]:.2f}x the bytes bound; warm kernel "
               f"only {rows[-1][1][4]:.4f} ms; {kind}, {name_power}")
 
+    # D1 on the largest launch of the stage-1/2 blastp run
+    n_d1, xd, hid = captured["d1"]
+    ops_d1 = d1_ops(xd[0], xd[1], xd[3], xd[4], xd[5])
+    blocks = xd[0].numel() + (0 if xd[1] is xd[0] else xd[1].numel())
+    n_bytes = 16 * n_d1 + blocks + 4 * 32 * 32 + (1 + 4) * n_d1
+    out_d1 = (torch.empty(n_d1, dtype=torch.uint8, device="cuda"),
+              torch.empty(n_d1, dtype=torch.int32, device="cuda"))
+    print(f"D1 batch: {n_d1} pairs (the largest of the stage-1/2 blastp run's "
+          f"{paths['d1']['launches']['d1']} launches), {ops_d1} int32 ops "
+          f"({ops_d1 / n_d1:.1f} a pair: {D1_NOTE}), {n_bytes} bytes (16 in "
+          f"and 5 out a pair, the letter blocks once)")
+    rows.append(("d1", time_kernel(
+        "d1", lambda: d1m.stage12_pairs(*xd, hid, checked=True),
+        lambda: d1m.stage12_pairs_torch(*xd, hid), n_d1, ops_d1 / n_d1,
+        "the mean of this batch's walks", n_bytes, 20,
+        alone=lambda: d1m.stage12_pairs(*xd, hid, checked=True, out=out_d1),
+        unit="pair")))
+
     meta = {
         "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
                "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)",
@@ -1668,6 +2048,8 @@ def main(argv=None):
                "k5"),
         "k6": ("stage2_filter", "diamond_tpu_torch/csrc/stage2.cu",
                "diamond_tpu/ops/stage2_pallas.py:85 (stage2_pallas)", "bench"),
+        "d1": ("stage12_pairs", "diamond_tpu_torch/csrc/stage12.cu",
+               "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel)", "d1"),
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

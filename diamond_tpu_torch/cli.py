@@ -4,7 +4,9 @@ The argparse surface is diamond_tpu's (reference src/run/main.cpp:73-234), so
 flags parse identically.  The port runs ``blastp`` (FASTA, ``.dmnd`` and
 BLAST database inputs) and ``blastx`` (FASTA or FASTQ reads; ``-F``,
 ``--long-reads``, ``--range-culling``, ``--strand``, ``--min-orf``,
-``--query-gencode``), both with ``--swipe``, in ``-f 6/0/5/101/103/104``;
+``--query-gencode``), both with ``--swipe``, in ``-f 6/0/5/100/101/102/103/
+104``, ``benchmark`` and the database commands ``makedb``, ``dbinfo``,
+``view``, ``merge-daa`` and ``version`` (host code, as in diamond_tpu);
 every other command, and every option whose modules are not ported yet,
 exits with a message naming its ROADMAP.md item.
 
@@ -302,10 +304,6 @@ def load_block(path, with_taxonomy: bool = False):
     return (b, None) if with_taxonomy else b
 
 
-_FORMATS = ("6", "tab", "0", "pairwise", "5", "xml", "101", "sam", "103",
-            "paf", "104", "json-flat")
-
-
 def _not_ported(what: str, item: str):
     raise SystemExit(f"{what} is not ported to diamond_tpu_torch yet "
                      f"(ROADMAP.md {item})")
@@ -324,9 +322,6 @@ def check_ported(args):
     if args.mesh or any(v is not None for v in (
             args.coordinator, args.num_procs, args.proc_id)):
         _not_ported("--mesh and multi-process search", "section 1, item 11")
-    code = args.outfmt[0] if args.outfmt else "6"
-    if code not in _FORMATS:
-        _not_ported(f"-f {code}", "section 1, item 17")
     if "approx_pident" in args.outfmt[1:]:
         _not_ported("The approx_pident field", "section 1, item 13")
     if args.masking == "seg":
@@ -392,6 +387,15 @@ def cmd_blastp(args):
         results = swipe_all_protein(qb, tb, cfg)
     else:
         results = Pipeline(cfg, qb, tb, device=device).search()
+    if args.outfmt and args.outfmt[0] in ("100", "daa"):
+        from diamond_tpu_torch.data.daa import write_daa
+
+        if args.out == "-":
+            raise SystemExit("DAA output requires an output file (-o)")
+
+        write_daa(args.out, results, qb, tb, cfg.matrix, cfg.max_evalue,
+                  build_version=getattr(args, "daa_build_version", 0))
+        return
     with ptimer("cli.write"):
         out = _open_out(args)
         write_results(out, args.outfmt, results, qb, tb, cfg.matrix,
@@ -574,6 +578,9 @@ def write_results(out, outfmt, results, qb, tb, matrix, taxonomy=None,
                                                   render_pairwise)
 
     code = outfmt[0] if outfmt else "6"
+    if code in ("100", "daa"):
+        raise SystemExit("DAA output requires -o FILE (binary); "
+                         "handled by the caller")
     if code in ("104", "json-flat"):
         from diamond_tpu_torch.output.tabular import render_json
 
@@ -599,6 +606,11 @@ def write_results(out, outfmt, results, qb, tb, matrix, taxonomy=None,
 
         out.write(render_sam(results, qb, tb, matrix, invocation,
                              program=program, **fmt_kw))
+    elif code in ("102",):
+        from diamond_tpu_torch.output.taxon import render_taxon
+
+        for line in render_taxon(results, qb, tb, taxonomy, **fmt_kw):
+            out.write(line + "\n")
     else:
         raise SystemExit(f"Unsupported output format: {code}")
 
@@ -609,6 +621,27 @@ def _parse_fields(outfmt):
     if not outfmt or outfmt[0] in ("6", "tab"):
         return outfmt[1:] if len(outfmt) > 1 else DEFAULT_FIELDS
     raise SystemExit(f"Unsupported output format: {outfmt[0]}")
+
+
+def cmd_makedb(args):
+    from diamond_tpu_torch.data.dmnd import write_dmnd
+    from diamond_tpu_torch.data.fasta import read_seqs
+
+    write_dmnd(args.db if args.db.endswith(".dmnd") else args.db + ".dmnd",
+               ((i, s.decode() if isinstance(s, bytes) else s)
+                for i, s in read_seqs(args.infile)),
+               mask_bit=args.masking != "0",
+               taxonmap=args.taxonmap, taxonnodes=args.taxonnodes,
+               taxonnames=args.taxonnames)
+
+
+def cmd_dbinfo(args):
+    from diamond_tpu_torch.data.dmnd import read_dmnd
+
+    ids, seqs = read_dmnd(args.db)
+    print("Database format version = 3")
+    print(f"Sequences = {len(ids)}")
+    print(f"Letters = {sum(len(s) for s in seqs)}")
 
 
 def main(argv=None):
@@ -636,6 +669,24 @@ def _dispatch(args):
         cmd_blastp(args)
     elif args.command == "blastx":
         cmd_blastx(args)
+    elif args.command == "makedb":
+        cmd_makedb(args)
+    elif args.command == "view":
+        from diamond_tpu_torch.data.daa import view_daa
+
+        out = sys.stdout if args.out == "-" else open(args.out, "w")
+        for line in view_daa(args.daa):
+            out.write(line + "\n")
+        if out is not sys.stdout:
+            out.close()
+    elif args.command == "dbinfo":
+        cmd_dbinfo(args)
+    elif args.command == "version":
+        print("diamond-tpu version 0.1.0 (reference compatibility: 2.2.2)")
+    elif args.command == "merge-daa":
+        from diamond_tpu_torch.data.daa import merge_daa
+
+        merge_daa(args.infiles, args.out)
     elif args.command == "benchmark":
         from diamond_tpu_torch.benchmark import run_benchmark
 

@@ -1,7 +1,7 @@
 """Stage-1 fingerprint identity counts as a one-hot batched matrix product
 (the counterpart of ``diamond_tpu/ops/stage12_jax._stage1_matmul_kernel``,
-which is XLA code, not a Pallas kernel; ``Stage12Device`` is still to port,
-ROADMAP.md section 1, item 14).
+which is XLA code, not a Pallas kernel): ``stage12_device.Stage12Device.
+run_join`` runs it on the large seed groups, the benchmark times it.
 
 The reference computes the same all-vs-all byte-match popcount with SIMD
 tiles (src/search/hamming/kernel.h:29-75).

@@ -701,11 +701,52 @@ class Pipeline:
 
     def _stage12_device(self, join, shape, sid, part_lo, part_hi,
                         skip_lm: bool, group_keep=None):
-        """Stage 1+2 on the card: not ported yet (ROADMAP.md section 1,
-        item 14: Stage12Device)."""
-        raise NotImplementedError(
-            "stage 1/2 on the card (DIAMOND_TPU_TORCH_STAGE12) is not "
-            "ported yet: ROADMAP.md section 1, item 14")
+        """Stage 1+2 on the card (ops/stage12_device; the two seeding
+        hot loops of SURVEY §7), left-most dedup on host.  Byte-identical
+        to the fused native pass (same pair order, exact integer ops)."""
+        from diamond_tpu_torch.ops.stage12_device import Stage12Device
+        from diamond_tpu_torch.search.stages import _filter_groups
+        from diamond_tpu_torch.utils.log import padd, pcount, perf_counter
+
+        cfg = self.cfg
+        t0 = perf_counter()  # spans: s12_expand, s12_card, s12_leftmost
+        if group_keep is not None:
+            join = _filter_groups(join, group_keep)
+        qp, sp = stages.expand_pairs(join)
+        pcount("seed.s12_pairs", len(qp))
+        if len(qp) == 0:
+            return np.empty((0, 4), dtype=np.int64)
+        dev = getattr(self, "_s12_dev", None)
+        if dev is None:
+            dev = self._s12_dev = Stage12Device(cfg.matrix.matrix32,
+                                                device=self.device)
+        qidx, qoff = self.q.global_to_local(qp)
+        cut, win = self._per_query_cutoffs()
+        t0 = padd("seed.s12_expand", t0)
+        keep, scores = dev.run_join(self.q.letters, self.t.letters, join,
+                                    qp, sp, win[qidx], cut[qidx],
+                                    cfg.hamming_filter_id)
+        t0 = padd("seed.s12_card", t0)
+        if cfg.self_search:
+            sidx, _ = self.t.global_to_local(sp)
+            keep &= ~(sidx == qidx)
+        qp, sp, scores = qp[keep], sp[keep], scores[keep]
+        qidx, qoff = qidx[keep], qoff[keep]
+        if skip_lm or len(qp) == 0:
+            padd("seed.s12_leftmost", t0)
+            return _hit_rows(qidx, sp, qoff, scores,
+                             np.arange(len(qp), dtype=np.int64))
+        chunked = cfg.index_chunks > 1
+        current = self._matcher(sid + 1)
+        previous = self._matcher(sid) if sid > 0 else self._matcher(0)
+        wl, wr = stages.clip_window(self.q.letters, qp, 48)
+        keep3 = left_most_filter_batch(
+            self.q.letters, self.t.letters, self.query_seed_mask,
+            cfg.reduction, qp, sp, qoff.astype(np.int64), wl, wr,
+            shape, sid, chunked, current, previous,
+            part_lo, part_hi, cfg.seedp_mask, cfg.hamming_filter_id)
+        padd("seed.s12_leftmost", t0)
+        return _hit_rows(qidx, sp, qoff, scores, np.nonzero(keep3)[0])
 
     def _stage12_parallel(self, join, shape, sid, chunk, part_lo, part_hi,
                           group_keep=None):
@@ -1145,7 +1186,11 @@ def _can_fork() -> bool:
     import multiprocessing
     import sys
 
+    from diamond_tpu_torch.utils.device import stage12_device_enabled
+
     # forked children run host code only: the DeviceDP route never forks
+    if stage12_device_enabled():
+        return False  # forked children must not touch the CUDA context
     return sys.platform.startswith("linux") and \
         "fork" in multiprocessing.get_all_start_methods()
 

@@ -11,7 +11,11 @@ the caller asked for it runs the kernel's plain PyTorch version.
 
   DIAMOND_TPU_TORCH_DEVICE_DP=0    send all DP to host C++ (the kill switch)
   DIAMOND_TPU_TORCH_DP_MIN_CELLS   per-job routing threshold (default 0)
-  DIAMOND_TPU_TORCH_STAGE12        ask for stage 1/2 on the card (not ported)
+  DIAMOND_TPU_TORCH_STAGE12        1: stage 1/2 seeding on the resolved device
+                                   (ops.stage12_device: the fused pair kernel
+                                   on the card, its plain version on a CPU);
+                                   0 or unset: the fused host C++ pass (the
+                                   default, as in diamond_tpu)
 """
 from __future__ import annotations
 
@@ -45,5 +49,7 @@ def device_dp_enabled() -> bool:
 
 
 def stage12_device_enabled() -> bool:
+    """Stage 1/2 on the device only when DIAMOND_TPU_TORCH_STAGE12 asks for
+    it (any value but "0"); the host pass stays the default."""
     v = os.environ.get("DIAMOND_TPU_TORCH_STAGE12")
     return bool(v) and v != "0"

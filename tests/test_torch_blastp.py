@@ -4,7 +4,11 @@ diamond_tpu's, in subprocesses.
 The port runs on the CPU with every fitting DP job routed through DeviceDP's
 plain version (DIAMOND_TPU_TORCH_DP_MIN_CELLS=0) and must make DeviceDP
 dispatches; diamond_tpu runs its host DP under JAX on the CPU.  Both CLIs see
-the same argv[0], so the SAM header's command line matches too.
+the same argv[0], so the SAM header's command line matches too.  With
+stage 1/2 on the device (DIAMOND_TPU_TORCH_STAGE12=1: Stage12Device, D1's
+plain version on the CPU) the port must equal diamond_tpu's device route
+(DIAMOND_TPU_STAGE12=1) and its own host route, dispatch to Stage12Device
+and never fork.
 """
 import os
 import subprocess
@@ -30,9 +34,30 @@ if "{pkg}" == "diamond_tpu_torch":
 sys.exit(rc)
 """
 
+# the port with stage 1/2 on the device: forking raises (children must not
+# touch the device), and the run reports Stage12Device's dispatch count
+_LAUNCH_S12 = """
+import multiprocessing
+import sys
+_get_context = multiprocessing.get_context
+def _no_fork(method=None):
+    if method == "fork":
+        raise RuntimeError("forked while stage 1/2 runs on the device")
+    return _get_context(method)
+multiprocessing.get_context = _no_fork
+from diamond_tpu_torch.cli import main
+sys.argv = ["diamond"] + sys.argv[1:]
+rc = main(sys.argv[1:])
+from diamond_tpu_torch.ops import stage12_device as d1
+print(f"S12_DISPATCHES={d1.dispatch_count}", file=sys.stderr)
+sys.exit(rc)
+"""
 
-def _run(pkg, args, tmp_path):
+
+def _run(pkg, args, tmp_path, stage12=False):
     env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("DIAMOND_TPU_TORCH_STAGE12", None)
+    env.pop("DIAMOND_TPU_STAGE12", None)
     if pkg == "diamond_tpu_torch":
         # one torch thread: the plain versions' tiny ops crawl when the
         # suite's parallel workers oversubscribe the cores
@@ -41,7 +66,13 @@ def _run(pkg, args, tmp_path):
         env.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
     else:
         env.update(JAX_PLATFORMS="cpu", DIAMOND_TPU_DEVICE_DP="0")
-    r = subprocess.run([sys.executable, "-c", _LAUNCH.format(pkg=pkg), *args],
+    launch = _LAUNCH.format(pkg=pkg)
+    if stage12:
+        env["DIAMOND_TPU_TORCH_STAGE12" if pkg == "diamond_tpu_torch"
+            else "DIAMOND_TPU_STAGE12"] = "1"
+        if pkg == "diamond_tpu_torch":
+            launch = _LAUNCH_S12
+    r = subprocess.run([sys.executable, "-c", launch, *args],
                        capture_output=True, env=env, timeout=600,
                        cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr.decode()[-2000:]
@@ -127,3 +158,31 @@ def test_blastp_port_matches_reference(inp, fmt, extra, dp, synthetic, j2_db,
     assert port == ref
     dispatches = int(log.rsplit("DISPATCHES=", 1)[1].split()[0])
     assert dispatches > 0 if dp else dispatches == 0
+
+
+# stage 1/2 on the device: both inputs at three sensitivities, and -p 4
+S12_CASES = [pytest.param(inp, extra, id=f"{inp}-{label}")
+             for inp in ("j2-q2", "synthetic")
+             for extra, label in (((), "default"), (("--faster",), "faster"),
+                                  (("--sensitive",), "sensitive"))]
+S12_CASES += [pytest.param("synthetic", ("-p", "4"), id="synthetic-p4")]
+
+
+@pytest.mark.parametrize("inp,extra", S12_CASES)
+def test_blastp_stage12_on_device_matches_reference_and_host(
+        inp, extra, synthetic, j2_db, tmp_path):
+    """DIAMOND_TPU_TORCH_STAGE12=1 (the port, CPU) == DIAMOND_TPU_STAGE12=1
+    (diamond_tpu) == the port's host route, byte for byte; the port's run
+    dispatched stage 1/2 to Stage12Device and did not fork.  (Neither
+    CLI passes -p on to SearchConfig.threads, so -p 4 forks nothing in
+    either package; tests/test_torch_stage12.py drives the fork guard
+    through Pipeline with 4 threads.)"""
+    q, d = {"j2-q2": (f"{GOLD}/j2.faa", j2_db), "synthetic": synthetic}[inp]
+    args = ["blastp", "-q", q, "-d", d, "-f", "6", *extra]
+    port, log = _run("diamond_tpu_torch", args, tmp_path, stage12=True)
+    ref, _ = _run("diamond_tpu", args, tmp_path, stage12=True)
+    host, _ = _run("diamond_tpu_torch", args, tmp_path)
+    assert port.strip(), "empty output"
+    assert port == ref
+    assert port == host
+    assert int(log.rsplit("S12_DISPATCHES=", 1)[1].split()[0]) > 0

@@ -24,9 +24,11 @@ ALLOWED = {
                         "cap on the host DP; knob renamed", 28),
     "align/wave.py": ("comment on the lazy torch import", 5),
     "search/pipeline.py": ("device route builds the port's DeviceDP; "
-                           "--mesh and stage 1/2 on the card raise; "
-                           "_can_fork reads no jax knob; -F extends the "
-                           "block's reads in one call", 86),
+                           "--mesh raises; stage 1/2 on the card builds the "
+                           "port's Stage12Device on the resolved device, "
+                           "its spans timed (padd); _can_fork reads the "
+                           "port's stage 1/2 knob; -F extends the block's "
+                           "reads in one call", 61),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "

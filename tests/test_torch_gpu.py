@@ -384,3 +384,61 @@ def test_stage2_kernel_edges_on_gpu():
     meta = torch.zeros((3, 5), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="at most"):
         s2.stage2_filter(*x, meta, torch.from_numpy(m2).cuda(), 26, W // 2)
+
+
+@pytest.mark.gpu
+def test_stage12_kernel_matches_plain_on_gpu(monkeypatch):
+    """D1 (the fused stage-1/2 filter) on chip_smoke's edge batches: pair
+    counts of no multiple of a block, every window width 1 to 48,
+    delimiters at and around the seed, masked letters with high bits,
+    hamming_id 0 to 49: keep and best equal to the plain version on the
+    same card tensors and to the CPU's; Stage12Device's chunks on the card
+    equal the CPU's; run_join on the card (groups over 512 pairs through
+    the one-hot product, tiles split over three products) equals the
+    CPU's run_join; and a pair reading past its block is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch.ops import stage12_device as d1
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    m32 = torch.from_numpy(np.ascontiguousarray(m.matrix32[:32, :32],
+                                                dtype=np.int32))
+    kept = set()
+    for label, case, hid in _smoke().stage12_edge_cases(seed=31):
+        q, s, qp, sp, win, cut = case
+        cpu = [torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
+               for a, dt in ((q, np.int8), (s, np.int8))] + [m32] + [
+            torch.from_numpy(a.astype(np.int32)) for a in (qp, sp, win, cut)]
+        x = [t.cuda() for t in cpu]
+        launches = d1.stage12_pairs.launches
+        got = d1.stage12_pairs(*x, hid)
+        assert d1.stage12_pairs.launches == launches + 1
+        want = d1.stage12_pairs_torch(*x, hid)
+        host = d1.stage12_pairs(*cpu, hid)
+        for g, w, h in zip(got, want, host):
+            assert torch.equal(g, w), label
+            assert torch.equal(g.cpu(), h), label
+        card = d1.Stage12Device(m.matrix32, device="cuda", chunk=1000)
+        k, b = card.run(q, s, qp, sp, win, cut, hid)
+        np.testing.assert_array_equal(k, host[0].numpy(), err_msg=label)
+        np.testing.assert_array_equal(b, host[1].numpy(), err_msg=label)
+        kept.update(bool(v) for v in got[0].cpu().numpy()[:50])
+    assert kept == {True, False}
+    letters, join, qp, sp, win, cut = _smoke().stage12_join_case(5)
+    monkeypatch.setattr(d1, "GROUP_TILES", 100)
+    want = d1.Stage12Device(m.matrix32, device="cpu").run_join(
+        letters, letters, join, qp, sp, win, cut, 11)
+    d1.reset_dispatch_stats()
+    launches = d1.stage12_pairs.launches
+    got = d1.Stage12Device(m.matrix32, device="cuda").run_join(
+        letters, letters, join, qp, sp, win, cut, 11)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].any()
+    assert d1.dispatch_count == 4  # three products and one kernel chunk
+    assert d1.stage12_pairs.launches == launches + 1
+    bad = x[3].clone()
+    bad[0] = x[0].numel() - 8
+    with pytest.raises(ValueError, match="outside"):
+        d1.stage12_pairs(x[0], x[1], x[2], bad, *x[4:], 11)
