@@ -2,7 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (diamond_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--queries N] [--long-reads N] [--short-reads N]
-                          [--swipe-queries N] [--sweep-queries N] [--seed S]
+                          [--swipe-queries N] [--sweep-queries N]
+                          [--blocked-queries N] [--dmnd-queries N]
+                          [--mp-queries N] [--iterate-queries N]
+                          [--global-queries N] [--cluster-seqs N]
+                          [--linclust-seqs N] [--deepclust-seqs N]
+                          [--mcl-small N] [--seed S]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
@@ -56,13 +61,31 @@ Phases; each one fails the run on error:
      the jobs whose band starts below diagonal -(t_len - 1) are counted
      in the blastp and --swipe runs, K1's and the host DP's; then
      ``makedb`` of the protein set and ``dbinfo`` of the result, timed;
-  8. SwipeSweep: the first 4 proteins against the whole set through K5,
+  8. the search drivers and the clustering commands, each on the card
+     route and on the host route (equal outputs; K1 launched on the card
+     route, none on the host route), each Pipeline's sensitivity, queries,
+     K1 jobs and seconds printed: ``blastp -b`` of the whole set against
+     itself at 1/4.5 of its letters a block (5 x 5 blocks; the card's peak
+     memory; whether it equals the unblocked output), the same from a
+     .dmnd at 2,000 queries (DmndProvider streaming); ``--multiprocessing``
+     at 2,000 queries: ``--mp-init``, then two worker processes at once
+     (``chip_smoke.py --cli-worker``) on each route, equal to one process;
+     ``--iterate --no-self-hits`` at 1,000 queries against the whole set;
+     ``-g 10`` at 1,000 (no K1: its extension is host DP, as in the
+     reference); ``cluster`` of 800, ``realign`` of its output and
+     ``linclust`` of 40 (host code, once); ``deepclust`` of 400 (these
+     sizes keep the run within half its time limit: at 10,000 the
+     cascades' linearised rounds take minutes of host code a route);
+     ``cluster --cluster-algo
+     mcl`` of a seeded set with families of 130-220 members (MCL_FAMILIES),
+     whose dense step (D3, torch ops) must run on the card on both routes;
+  9. SwipeSweep: the first 4 proteins against the whole set through K5,
      scores held against K2's FullSweep on the same pairs;
-  9. benchmark: ``diamond_tpu_torch.cli benchmark`` (its table printed);
+ 10. benchmark: ``diamond_tpu_torch.cli benchmark`` (its table printed);
      K1, K3, K4 and K6 must have launched;
-     paths 4-9 report the card's kernel busy time (CUDA events around every
+     paths 4-10 report the card's kernel busy time (CUDA events around every
      launch) and its idle share;
- 10. timing: each kernel, its plain version and the bound on the largest
+ 11. timing: each kernel, its plain version and the bound on the largest
      batch of its path (CUDA events): per call (the wrapper launched from
      Python) and kernel only (the launches replayed from a CUDA graph);
      K1 with its band classes and the cells it walks against the exact
@@ -71,13 +94,17 @@ Phases; each one fails the run on error:
      path); K2 also over the whole --swipe path, against its bound at 7
      int32 ops a cell (DPX counted) and at the 11 before DPX; K6 also cold
      (the L2 flushed before each launch by writing 256 MB, and by reading
-     them); D1 on the largest launch of the stage-1/2 blastp run.
+     them); D1 on the largest launch of the stage-1/2 blastp run; D3 on
+     the MCL run's matrices against the same torch ops on the CPU and the
+     numpy loop (equal cluster assignments), timed on the largest against
+     2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import os
@@ -155,20 +182,99 @@ def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
         fam = k if k < n_families else int(rng.integers(n_families))
         s = roots[fam]
         if k >= n_families:
-            ident = rng.uniform(0.40, 0.95)
-            s = s.copy()
-            sub = rng.random(len(s)) > ident
-            s[sub] = draw(int(sub.sum()))
-            for _ in range(int(rng.poisson(2))):
-                pos = int(rng.integers(len(s)))
-                ln = int(rng.integers(1, 6))
-                if rng.random() < 0.5:
-                    s = np.concatenate([s[:pos], draw(ln), s[pos:]])
-                elif len(s) - ln >= 30:
-                    s = np.concatenate([s[:pos], s[pos + ln:]])
+            s = _member(rng, s, rng.uniform(0.40, 0.95), draw)
         seqs.append((f"syn{k:05d}_fam{fam:04d}", s.tobytes().decode()))
     perm = rng.permutation(n_seqs)
     return [seqs[i] for i in perm]
+
+
+def _member(rng, root, ident, draw):
+    """A family member: the root at identity ``ident`` with a few short
+    indels."""
+    s = root.copy()
+    sub = rng.random(len(s)) > ident
+    s[sub] = draw(int(sub.sum()))
+    for _ in range(int(rng.poisson(2))):
+        pos = int(rng.integers(len(s)))
+        ln = int(rng.integers(1, 6))
+        if rng.random() < 0.5:
+            s = np.concatenate([s[:pos], draw(ln), s[pos:]])
+        elif len(s) - ln >= 30:
+            s = np.concatenate([s[:pos], s[pos + ln:]])
+    return s
+
+
+def make_families(sizes, n_small: int, seed: int = 0):
+    """Seeded protein families of the given member counts plus ``n_small``
+    sequences in families of 1-6: roots of 120-260 letters from the
+    BLOSUM62 background frequencies, every member at 80-97 % identity to its
+    root with a few short indels, so that a family of 128 members or more
+    forms one MCL component of that size.  Returns [(id, sequence)] in
+    shuffled order."""
+    from diamond_tpu_torch.constants._matrix_data import MATRICES
+
+    rng = np.random.default_rng(seed)
+    bg = np.asarray(MATRICES["BLOSUM62"]["background_freqs"], np.float64)
+    bg /= bg.sum()
+    letters = np.frombuffer(AA.encode(), np.uint8)
+
+    def draw(n):
+        return letters[rng.choice(20, size=n, p=bg)]
+
+    sizes = list(sizes)
+    small = 0
+    while small < n_small:
+        sizes.append(min(int(rng.integers(1, 7)), n_small - small))
+        small += sizes[-1]
+    seqs = []
+    for fam, size in enumerate(sizes):
+        root = draw(int(rng.integers(120, 261)))
+        for k in range(size):
+            s = _member(rng, root, rng.uniform(0.80, 0.97), draw)
+            seqs.append((f"mcl{len(seqs):05d}_fam{fam:04d}",
+                         s.tobytes().decode()))
+    perm = rng.permutation(len(seqs))
+    return [seqs[i] for i in perm]
+
+
+def mcl_graph(seed: int, sizes):
+    """Seeded MCL input: edges (i, j, similarity) of components of the
+    given node counts, each made of families of 8-40 nodes joined strongly
+    inside (55-99, self loops 100) and by one weak edge (1-19) to the next
+    family.  Returns (node count, edges)."""
+    rng = np.random.default_rng(seed)
+    edges, base = [], 0
+    for size in sizes:
+        fam, k = [], 0
+        while k < size:
+            f = min(int(rng.integers(8, 41)), size - k)
+            fam.append(range(base + k, base + k + f))
+            k += f
+        for f in fam:
+            for i in f:
+                edges.append((i, i, 100.0))
+                for j in f:
+                    if i < j and rng.random() < 0.6:
+                        w = float(rng.integers(55, 100))
+                        edges += [(i, j, w), (j, i, w)]
+        for a, b in zip(fam, fam[1:]):
+            i, j = int(rng.choice(a)), int(rng.choice(b))
+            w = float(rng.integers(1, 20))
+            edges += [(i, j, w), (j, i, w)]
+        base += size
+    return base, edges
+
+
+def mcl_matrix(n: int, edges):
+    """The column-stochastic matrix mcl_cluster builds for one component
+    (symmetric edges, self loops of at least 1)."""
+    M = np.zeros((n, n), dtype=np.float32)
+    for i, j, w in edges:
+        M[j, i] = max(M[j, i], w)
+        M[i, j] = max(M[i, j], w)
+    np.fill_diagonal(M, np.maximum(M.diagonal(), 1.0))
+    M /= np.maximum(M.sum(axis=0, keepdims=True), 1e-30)
+    return M
 
 
 STANDARD_CODE = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
@@ -808,6 +914,68 @@ def d1_ops(q_blk, s_blk, qp, sp, windows) -> int:
                + D1_STEP_OPS * int((wl + wr).sum()))
 
 
+# the MCL run's large families: four components of 128-1,024 nodes, so that
+# MCL's dense step (D3) runs on the card through the CLI
+MCL_FAMILIES = (130, 150, 180, 220)
+# D3's bound: 2 m^3 (expansion - 1) flops an iteration over the fp32 rate
+# outside the tensor cores (132 SMs x 128 lanes x 2 flops x the SM clock)
+FP32_LANES_PER_SM = 128
+
+
+def cli_worker(argv) -> int:
+    """One CLI run in a process of its own (a --multiprocessing worker),
+    DeviceDP's launches timed with CUDA events; its last line of standard
+    output is ``WORKER_STATS=`` and a JSON object."""
+    import torch
+
+    from diamond_tpu_torch.cli import main as cli_main
+    from diamond_tpu_torch.ops import swipe_device as sd
+
+    events = []
+    launch = sd.DeviceDP.launch
+
+    def timed_launch(self, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = launch(self, *a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    sd.DeviceDP.launch = timed_launch
+    t0 = time.perf_counter()
+    rc = cli_main(argv) or 0
+    torch.cuda.synchronize()
+    print("WORKER_STATS=" + json.dumps(dict(
+        rc=rc, wall_s=round(time.perf_counter() - t0, 3),
+        k1=sd.banded_swipe_multi.launches,
+        busy_s=sum(a.elapsed_time(b) for a, b in events) / 1e3,
+        max_memory_allocated=torch.cuda.max_memory_allocated())))
+    return rc
+
+
+def run_workers(argvs, env, timeout=900):
+    """cli_worker processes, one per argv, all at once; their stats.  Every
+    process is waited for (and killed on a failure or the timeout)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--cli-worker", *a], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for a in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    stats = []
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"a worker exited {p.returncode}: {e[-2000:]}")
+        stats.append(json.loads(o.splitlines()[-1].split("=", 1)[1]))
+    return stats
+
+
 def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -929,6 +1097,25 @@ def main(argv=None):
                     help="queries of the blastp --swipe run")
     ap.add_argument("--sweep-queries", type=int, default=4,
                     help="queries of the SwipeSweep (K5) run")
+    ap.add_argument("--blocked-queries", type=int, default=10_000,
+                    help="queries of the blastp -b run (FASTA)")
+    ap.add_argument("--dmnd-queries", type=int, default=2_000,
+                    help="queries of the blastp -b run from a .dmnd")
+    ap.add_argument("--mp-queries", type=int, default=2_000,
+                    help="queries of the --multiprocessing run")
+    ap.add_argument("--iterate-queries", type=int, default=1_000,
+                    help="queries of the blastp --iterate run")
+    ap.add_argument("--global-queries", type=int, default=1_000,
+                    help="queries of the blastp -g 10 run")
+    ap.add_argument("--cluster-seqs", type=int, default=800,
+                    help="sequences of the cluster run (realign takes its "
+                         "output)")
+    ap.add_argument("--linclust-seqs", type=int, default=40,
+                    help="sequences of the linclust run")
+    ap.add_argument("--deepclust-seqs", type=int, default=400,
+                    help="sequences of the deepclust run")
+    ap.add_argument("--mcl-small", type=int, default=200,
+                    help="sequences in small families beside MCL_FAMILIES")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -967,6 +1154,7 @@ def main(argv=None):
     from diamond_tpu_torch.search import pipeline as ppipe
     from diamond_tpu_torch.search import stages as pstages
     from diamond_tpu_torch.benchmark import FULL as BENCH
+    from diamond_tpu_torch.cluster import mcl as pmcl
     from diamond_tpu_torch.constants.alphabet import encode
     from diamond_tpu_torch.ops import _cuda
     from diamond_tpu_torch.ops import stage12_device as d1m
@@ -1433,6 +1621,29 @@ def main(argv=None):
         return dispatch_block(self, queries, tblock, t_order,
                               kernel=timed(sd.full_swipe))
 
+    rounds_log = []  # the Pipelines of a run (combos, rounds)
+    pipe_search = ppipe.Pipeline.search
+
+    def spy_search(self):
+        """One Pipeline (a block combo, an --iterate or cluster round): its
+        sensitivity, queries searched, targets, K1 jobs and seconds."""
+        t0 = time.perf_counter()
+        jobs0 = plog.prof_calls.get("ext.device_jobs", 0)
+        try:
+            return pipe_search(self)
+        finally:
+            skip = self.query_skip
+            rounds_log.append(dict(
+                sens=self.cfg.sensitivity
+                + ("_lin" if self.cfg.lin_stage1_target else ""),
+                queries=len(self.q) - (0 if skip is None
+                                       else int(np.count_nonzero(skip))),
+                targets=len(self.t),
+                k1_jobs=plog.prof_calls.get("ext.device_jobs", 0) - jobs0,
+                s=round(time.perf_counter() - t0, 3)))
+
+    round_patch = [(ppipe.Pipeline, "search", spy_search)]
+
     def drive(route, argv, out, host, stage12=False, patches=()):
         """One CLI run with every count and counter set to 0 just before;
         stage12 puts stage 1/2 on the card (DIAMOND_TPU_TORCH_STAGE12=1);
@@ -1452,6 +1663,7 @@ def main(argv=None):
         plog.prof_calls.clear()
         plog.prof.clear()
         events.clear()
+        rounds_log.clear()
         torch.cuda.reset_peak_memory_stats()
         try:
             with Patched((sd.DeviceDP, "run_many", spy_k1),
@@ -1496,34 +1708,39 @@ def main(argv=None):
         print(f"{route} host phases (s): "
               + json.dumps({k: round(v, 3) for k, v in phases}))
         res["phases"] = dict(plog.prof)
+        res["rounds"] = list(rounds_log)
         return res, data
 
 
     def report(route, res, n, what):
         print(f"{route}: {res['lines']} lines, sha {res['sha']}, "
               f"{res['wall_s']:.2f} s, {n / res['wall_s']:.1f} {what}/s on "
-              f"{kind} ({name_power}); device busy {res['device_busy_s']:.4f}"
+              f"{kind} ({name_power}); K1 launches {res['launches']['k1']}; "
+              f"device busy {res['device_busy_s']:.4f}"
               f" s, idle share {res['idle_share']:.4f}")
 
-    def both(name, argv, n, what, kernel):
+    def both(name, argv, n, what, kernel, patches=()):
+        """The path on the card route and on the host route (DIAMOND_TPU_
+        TORCH_DEVICE_DP=0): equal outputs, ``kernel`` launched on the card
+        route (None: a path that launches no kernel, as -g)."""
         out = {}
         for route in ("card", "host"):
             res, data = drive(f"{name} {route}", argv,
                               os.path.join(tmp, f"{name}_{route}.out"),
-                              host=route == "host")
+                              host=route == "host", patches=patches)
             report(f"{name} {route}", res, n, what)
             out[route] = (res, data)
         card, host = out["card"][0], out["host"][0]
         if out["card"][1] != out["host"][1]:
             raise RuntimeError(f"{name}: card-DP and host-DP outputs differ")
-        if card["launches"][kernel] == 0:
+        if kernel and card["launches"][kernel] == 0:
             raise RuntimeError(f"{name}: the path never launched {kernel}")
         if any(host["launches"].values()):
             raise RuntimeError(f"{name}: the host route launched a kernel")
         if card["launches"]["d1"]:
             raise RuntimeError(f"{name}: stage 1/2 went to the card unasked")
         print(f"{name}: outputs identical ({card['lines']} lines, sha "
-              f"{card['sha']}); {kernel} launches {card['launches'][kernel]}")
+              f"{card['sha']}); launches {card['launches']}")
         return out
 
     inside_s12 = [False]
@@ -1594,6 +1811,7 @@ def main(argv=None):
         if len(selfs) != n_q:
             raise RuntimeError("a query did not find itself")
         paths["k1"] = out["card"][0]
+        k1_batch = captured["k1"]  # K1 is timed on blastp's largest batch
         # the third route: stage 1/2 on the card too (D1)
         res, data = drive("blastp card-stage12",
                           ["blastp", "-q", qf, "-d", db, "-f", "6"],
@@ -1696,6 +1914,207 @@ def main(argv=None):
                               f"Letters = {n_letters}"]:
             raise RuntimeError("makedb/dbinfo failed or miscounted")
 
+        # -- 10-15. the search drivers and the clustering commands ----------
+        def print_rounds(name, res):
+            print(f"{name} Pipelines (sensitivity, queries searched, targets,"
+                  f" K1 jobs, s): " + json.dumps(
+                      [[r["sens"], r["queries"], r["targets"], r["k1_jobs"],
+                        r["s"]] for r in res["rounds"]]))
+
+        def fasta_of(name, sub):
+            if len(sub) == len(recs):
+                return db
+            path = os.path.join(tmp, f"{name}.faa")
+            write_fasta(path, sub)
+            return path
+
+        phase("blastp -b (blocked search, K1)")
+        from diamond_tpu_torch.search.blocked import split_bounds
+
+        lens = np.array([len(x) for _, x in recs])
+        bsz = f"{n_letters / 4.5 / 1e9:.9f}"
+        cap = int(float(bsz) * 1e9)
+        n_b = min(args.blocked_queries, len(recs))
+        n_tb, n_qb = (len(split_bounds(lens, cap)),
+                      len(split_bounds(lens[:n_b], cap)))
+        print(f"-b {bsz} ({cap} letters a block): {n_qb} query blocks of "
+              f"{n_b} queries x {n_tb} target blocks")
+        if n_tb < 4 or n_qb < 2:
+            raise RuntimeError("the block size gives too few blocks")
+        qb_f = fasta_of("q_blocked", recs[:n_b])
+        out = both("blastp-b", ["blastp", "-q", qb_f, "-d", db, "-b", bsz],
+                   n_b, "queries", "k1", patches=round_patch)
+        blocked = out["card"][0]
+        print_rounds("blastp-b card", blocked)
+        print(f"blastp-b: card peak memory {blocked['max_memory_allocated']}"
+              f" bytes (torch.cuda.max_memory_allocated)")
+        if n_b == n_q:
+            print(f"blastp-b: output {'equals' if blocked['sha'] == paths['k1']['sha'] else 'differs from'}"
+                  f" the unblocked self-search's (sha {paths['k1']['sha']})")
+
+        phase("blastp -b from a .dmnd (DmndProvider streaming, K1)")
+        n_dm = min(args.dmnd_queries, len(recs))
+        qdm = fasta_of("q_dmnd", recs[:n_dm])
+        out = both("blastp-b-dmnd", ["blastp", "-q", qdm, "-d",
+                                     dbp + ".dmnd", "-b", bsz],
+                   n_dm, "queries", "k1", patches=round_patch)
+        print_rounds("blastp-b-dmnd card", out["card"][0])
+        print(f"blastp-b-dmnd: card peak memory "
+              f"{out['card'][0]['max_memory_allocated']} bytes")
+
+        phase("blastp --multiprocessing (two worker processes, one card)")
+        n_mp = min(args.mp_queries, len(recs))
+        qmp = fasta_of("q_mp", recs[:n_mp])
+        mp_argv = ["blastp", "-q", qmp, "-d", db, "-b", bsz]
+        res_one, one = drive("blastp-mp one process card", mp_argv,
+                             os.path.join(tmp, "mp_one.out"), host=False)
+        report("blastp-mp one process card", res_one, n_mp, "queries")
+        for route in ("card", "host"):
+            work = os.path.join(tmp, f"mp_{route}")
+            if cli_main(mp_argv + ["--mp-init", "--parallel-tmpdir", work]):
+                raise RuntimeError("--mp-init failed")
+            env = dict(os.environ)
+            env.pop("DIAMOND_TPU_PROF", None)
+            if route == "host":
+                env["DIAMOND_TPU_TORCH_DEVICE_DP"] = "0"
+            t0 = time.perf_counter()
+            stats = run_workers(
+                [mp_argv + ["--multiprocessing", "--parallel-tmpdir", work,
+                            "-o", os.path.join(work, f"out{k}")]
+                 for k in range(2)], env)
+            wall = time.perf_counter() - t0
+            outs = [open(os.path.join(work, f"out{k}"), "rb").read()
+                    for k in range(2)
+                    if os.path.exists(os.path.join(work, f"out{k}"))]
+            k1 = [st["k1"] for st in stats]
+            busy = sum(st["busy_s"] for st in stats)
+            sha = hashlib.sha256(outs[0]).hexdigest()[:16] if outs else None
+            print(f"blastp-mp {route}: 2 workers, {n_mp} queries x "
+                  f"{len(recs)} targets, {n_tb} combos; {wall:.2f} s from "
+                  f"launch to the last exit, {n_mp / wall:.1f} queries/s on "
+                  f"{kind} ({name_power}); per worker: " + json.dumps(stats)
+                  + f"; K1 launches {k1}, device busy {busy:.4f} s, idle "
+                  f"share {1 - busy / wall:.4f}; {len(outs)} printed the "
+                  f"join, sha {sha}")
+            if not outs or any(o != one for o in outs):
+                raise RuntimeError(f"blastp-mp {route}: the workers' output "
+                                   f"differs from one process's")
+            if route == "card" and not sum(k1):
+                raise RuntimeError("blastp-mp: the workers never launched K1")
+            if route == "host" and sum(k1):
+                raise RuntimeError("blastp-mp: the host route launched K1")
+        print(f"blastp-mp: two workers equal one process on both routes "
+              f"(sha {res_one['sha']})")
+
+        phase("blastp --iterate (default cascade, K1)")
+        # without self hits, a query moves on to the next round until it
+        # finds a homolog (a self-search would end after the first round)
+        n_it = min(args.iterate_queries, len(recs))
+        out = both("blastp-iterate", ["blastp", "-q",
+                                      fasta_of("q_iterate", recs[:n_it]),
+                                      "-d", db, "--iterate",
+                                      "--no-self-hits"],
+                   n_it, "queries", "k1", patches=round_patch)
+        for route in ("card", "host"):
+            print_rounds(f"blastp-iterate {route}", out[route][0])
+
+        phase("blastp -g 10 (global ranking; its extension on the host DP)")
+        n_g = min(args.global_queries, len(recs))
+        out = both("blastp-g", ["blastp", "-q", fasta_of("q_g", recs[:n_g]),
+                                "-d", db, "-g", "10"], n_g, "queries", None)
+        if out["card"][0]["launches"]["k1"]:
+            raise RuntimeError("-g launched K1: its ranking pass stops "
+                               "before the extension")
+
+        phase("cluster (default cascade, greedy vertex cover, K1)")
+        n_cl = min(args.cluster_seqs, len(recs))
+        cdb = fasta_of("cluster", recs[:n_cl])
+        out = both("cluster", ["cluster", "-d", cdb], n_cl, "sequences",
+                   "k1", patches=round_patch)
+        for route in ("card", "host"):
+            print_rounds(f"cluster {route}", out[route][0])
+        reps = {ln.split("\t")[0] for ln in out["card"][1].decode().splitlines()}
+        print(f"cluster: {len(reps)} clusters of {n_cl} sequences")
+        cl_out = os.path.join(tmp, "cluster_card.out")
+
+        phase("realign of the cluster output, linclust (host code)")
+        res, data = drive("realign", ["realign", "-d", cdb, "--clusters",
+                                      cl_out],
+                          os.path.join(tmp, "realign.out"), host=False)
+        report("realign", res, n_cl, "sequences")
+        if res["lines"] != n_cl or any(res["launches"].values()):
+            raise RuntimeError("realign: a line per member, host code only")
+        n_lc = min(args.linclust_seqs, len(recs))
+        res, data = drive("linclust", ["linclust", "-d",
+                                       fasta_of("linclust", recs[:n_lc])],
+                          os.path.join(tmp, "linclust.out"), host=False)
+        report("linclust", res, n_lc, "sequences")
+        print(f"linclust: {len({ln.split(chr(9))[0] for ln in data.decode().splitlines()})}"
+              f" clusters of {n_lc} sequences")
+        if res["lines"] != n_lc or any(res["launches"].values()):
+            raise RuntimeError("linclust: a line per sequence, host code "
+                               "only")
+
+        phase("deepclust (the cascade at approx-id 0, K1)")
+        n_dc = min(args.deepclust_seqs, len(recs))
+        out = both("deepclust", ["deepclust", "-d",
+                                 fasta_of("deepclust", recs[:n_dc])],
+                   n_dc, "sequences", "k1", patches=round_patch)
+        print_rounds("deepclust card", out["card"][0])
+
+        phase("cluster --cluster-algo mcl (MCL; its dense step D3 on the card)")
+        fams = make_families(MCL_FAMILIES, args.mcl_small, seed=args.seed + 20)
+        mdb = os.path.join(tmp, "mcl.faa")
+        write_fasta(mdb, fams)
+        print(f"MCL set: {len(fams)} sequences, families of "
+              f"{list(MCL_FAMILIES)} members and {args.mcl_small} sequences "
+              f"in families of 1-6, 80-97 % identity to their roots")
+        mcl_step = pmcl.mcl_dense_torch
+        d3_in, d3_calls = [], []
+
+        def spy_d3(M, *a):
+            """D3 as mcl_cluster calls it: each input kept, each call timed
+            to its result on the host; the step counts its launches on the
+            name its module binds, so they land here."""
+            d3_in.append((M.copy(), a))
+            t0 = time.perf_counter()
+            r = mcl_step(M, *a)
+            d3_calls.append((len(M), time.perf_counter() - t0))
+            return r
+
+        mcl_out = {}
+        for route in ("card", "host"):
+            d3_in.clear(), d3_calls.clear()
+            spy_d3.launches = 0
+            res, data = drive(f"cluster-mcl {route}",
+                              ["cluster", "-d", mdb, "--cluster-algo", "mcl"],
+                              os.path.join(tmp, f"mcl_{route}.out"),
+                              host=route == "host", patches=round_patch + [
+                                  (pmcl, "mcl_dense_torch", spy_d3)])
+            report(f"cluster-mcl {route}", res, len(fams), "sequences")
+            res["d3"] = (spy_d3.launches, list(d3_calls), list(d3_in))
+            print(f"cluster-mcl {route}: D3 launches {spy_d3.launches}, "
+                  f"calls (m, s) " + json.dumps([(n, round(t, 4))
+                                                 for n, t in d3_calls]))
+            mcl_out[route] = (res, data)
+        card, host = mcl_out["card"][0], mcl_out["host"][0]
+        if mcl_out["card"][1] != mcl_out["host"][1]:
+            raise RuntimeError("cluster-mcl: card-DP and host-DP outputs "
+                               "differ")
+        n_big = sum(s >= pmcl.JAX_MIN_COMPONENT for s in MCL_FAMILIES)
+        if not card["launches"]["k1"] or any(host["launches"].values()):
+            raise RuntimeError("cluster-mcl: K1 on the card route only")
+        if card["d3"][0] < n_big or host["d3"][0] < n_big:
+            raise RuntimeError(f"cluster-mcl: D3 launched fewer than "
+                               f"{n_big} times")
+        sizes_out = sorted(collections.Counter(
+            ln.split("\t")[0] for ln in
+            mcl_out["card"][1].decode().splitlines()).values())[::-1]
+        print(f"cluster-mcl: outputs identical (sha {card['sha']}); "
+              f"largest clusters {sizes_out[:8]}")
+        paths["d3"] = dict(launches={"d3": card["d3"][0]})
+        d3_mats = card["d3"][2]
+
     phase("SwipeSweep (diagonal-band full-matrix sweep, K5)")
     letters = [encode(s) for _, s in recs]
     queries5 = [(q, None) for q in letters[:args.sweep_queries]]
@@ -1790,7 +2209,7 @@ def main(argv=None):
         return ms, plain_ms, bound_ms, bound_by, only_ms
 
     # K1 on the largest DeviceDP batch of the blastp run
-    p = sd.pack_requests(captured["k1"][1], "cuda")
+    p = sd.pack_requests(k1_batch[1], "cuda")
 
     def per_class(fn):  # one call per band class, as DeviceDP.launch makes
         return [o for R, lo, hi in p.classes
@@ -1808,7 +2227,7 @@ def main(argv=None):
     pow2 = int((t_len1 * 32 * np.array(
         [1 << (sd.rows_per_lane(int(b)) - 1).bit_length()
          for b in jobs[:, 3]])).sum())
-    print(f"K1 batch: {p.n_jobs} jobs in {len(captured['k1'][1])} requests; "
+    print(f"K1 batch: {p.n_jobs} jobs in {len(k1_batch[1])} requests; "
           f"(band class rows, jobs): "
           f"{[(R * 32, hi - lo) for R, lo, hi in p.classes]}; cells walked "
           f"{p.walk_cells} (power-of-two classes would walk {pow2}) for "
@@ -2029,6 +2448,68 @@ def main(argv=None):
         alone=lambda: d1m.stage12_pairs(*xd, hid, checked=True, out=out_d1),
         unit="pair")))
 
+    # D3, MCL's dense step, on the matrices of the MCL run's card route: on
+    # the card against the same torch ops on the CPU and the numpy loop
+    phase("D3 parity and timing (MCL's dense step, torch ops)")
+    d3_step = pmcl.mcl_dense_torch
+    d3_cpu_diff = d3_np_diff = 0.0
+    d3_mis = 0
+    for M, a in d3_mats:
+        got = d3_step(M, *a)
+        cpu = d3_step(M, *a[:3], "cpu")
+        npl = pmcl._mcl_dense(M.copy(), *a[:3], None)
+        d3_cpu_diff = max(d3_cpu_diff, float(np.abs(got - cpu).max()))
+        d3_np_diff = max(d3_np_diff, float(np.abs(got - npl).max()))
+        want = pmcl._clusters_from_matrix(cpu)
+        d3_mis += int((pmcl._clusters_from_matrix(got) != want).sum()
+                      + (pmcl._clusters_from_matrix(npl) != want).sum())
+    print(f"D3 parity: {len(d3_mats)} matrices (m = "
+          f"{[len(M) for M, _ in d3_mats]}), cluster assignments card vs "
+          f"CPU vs numpy loop mismatches {d3_mis}; largest |card - CPU| "
+          f"{d3_cpu_diff:.3g}, |card - numpy| {d3_np_diff:.3g}")
+    if d3_mis or not d3_mats:
+        raise RuntimeError("D3's assignments disagree with its plain "
+                           "versions")
+    Mb, ab = max(d3_mats, key=lambda x: len(x[0]))
+    mb = len(Mb)
+    n_mm = [0]
+    matmul = torch.Tensor.__matmul__
+
+    def count_mm(x, y):
+        n_mm[0] += 1
+        return matmul(x, y)
+
+    torch.Tensor.__matmul__ = count_mm
+    try:
+        d3_step(Mb, *ab)
+    finally:
+        torch.Tensor.__matmul__ = matmul
+    iters = n_mm[0] // (ab[0] - 1)
+    ms = cuda_ms(lambda: d3_step(Mb, *ab), 5)
+    t0 = time.perf_counter()
+    d3_step(Mb, *ab[:3], "cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pmcl._mcl_dense(Mb.copy(), *ab[:3], None)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    flops = 2 * mb ** 3 * (ab[0] - 1) * iters
+    fp32_s = flops / (H100_SMS * FP32_LANES_PER_SM * 2 * sm_clock_mhz * 1e6)
+    bytes_s = 2 * 4 * mb * mb / HBM_BYTES_PER_S
+    bound_ms = max(fp32_s, bytes_s) * 1e3
+    bound_by = "operations" if fp32_s >= bytes_s else "bytes"
+    run_s = sum(t for _, t in mcl_out["card"][0]["d3"][1])
+    print(f"d3: largest call m {mb}, {iters} iterations, {n_mm[0]} fp32 "
+          f"matmuls, {flops} flops (2 m^3 (expansion - 1) an iteration), "
+          f"{2 * 4 * mb * mb} bytes (the matrix in and out); per call "
+          f"{ms:.4f} ms (copies and a scalar read back an iteration "
+          f"included), CPU torch step {plain_ms:.2f} ms, numpy loop "
+          f"{numpy_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}; fp32 "
+          f"{fp32_s * 1e3:.5f} ms, bytes {bytes_s * 1e3:.5f} ms); the MCL "
+          f"run's {paths['d3']['launches']['d3']} calls took {run_s:.4f} s "
+          f"in all; library_ms null; {kind}, {name_power}")
+    max_err["d3"] = d3_cpu_diff
+    rows.append(("d3", (ms, plain_ms, bound_ms, bound_by, None)))
+
     meta = {
         "k1": ("banded_swipe_multi", "diamond_tpu_torch/csrc/banded_swipe.cu",
                "diamond_tpu/ops/swipe_device.py:231 (banded_swipe_pallas_multi)",
@@ -2050,6 +2531,10 @@ def main(argv=None):
                "diamond_tpu/ops/stage2_pallas.py:85 (stage2_pallas)", "bench"),
         "d1": ("stage12_pairs", "diamond_tpu_torch/csrc/stage12.cu",
                "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel)", "d1"),
+        # torch ops (fp32 matmul with TF32 off), not a hand-written kernel:
+        # the reference computes this step with XLA outside any Pallas kernel
+        "d3": ("mcl_dense_torch", "diamond_tpu_torch/cluster/mcl.py",
+               "diamond_tpu/cluster/mcl.py:44 (_mcl_dense, jit/XLA)", "d3"),
     }
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -2065,6 +2550,7 @@ def main(argv=None):
         "bound_by": bound_by,
         "library_ms": None,
         "kernel_only_ms": only_ms,
+        "hand_written": k != "d3",
     } for k, (ms, plain_ms, bound_ms, bound_by, only_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
@@ -2072,4 +2558,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-worker"]:
+        sys.exit(cli_worker(sys.argv[2:]))
     sys.exit(main())

@@ -2,16 +2,21 @@
 
 The argparse surface is diamond_tpu's (reference src/run/main.cpp:73-234), so
 flags parse identically.  The port runs ``blastp`` (FASTA, ``.dmnd`` and
-BLAST database inputs) and ``blastx`` (FASTA or FASTQ reads; ``-F``,
-``--long-reads``, ``--range-culling``, ``--strand``, ``--min-orf``,
-``--query-gencode``), both with ``--swipe``, in ``-f 6/0/5/100/101/102/103/
-104``, ``benchmark`` and the database commands ``makedb``, ``dbinfo``,
-``view``, ``merge-daa`` and ``version`` (host code, as in diamond_tpu);
-every other command, and every option whose modules are not ported yet,
-exits with a message naming its ROADMAP.md item.
+BLAST database inputs; ``-b``/``-M`` blocked search, ``--multiprocessing``
+with ``--mp-init``/``--mp-recover``, ``--approx-id``) and ``blastx`` (FASTA
+or FASTQ reads; ``-F``, ``--long-reads``, ``--range-culling``,
+``--strand``, ``--min-orf``, ``--query-gencode``), both with ``--swipe``,
+``-g`` and ``--iterate``, in ``-f 6/0/5/100/101/102/103/104``,
+``benchmark``, the clustering commands ``cluster``, ``deepclust``,
+``linclust`` (``--cluster-algo mcl``, ``--multiprocessing``), ``realign``
+and ``greedy-vertex-cover``, and the database commands ``makedb``,
+``dbinfo``, ``view``, ``merge-daa`` and ``version`` (host code, as in
+diamond_tpu); every other command, and every option whose modules are not
+ported yet, exits with a message naming its ROADMAP.md item.
 
-The device DP (the extension rounds of ``blastp``, the 3-frame DP of
-``blastx -F``, the ``blastp --swipe`` sweep) runs on the CUDA card unless
+The device DP (the extension rounds of ``blastp`` and of every search
+the drivers and the cluster rounds run, the 3-frame DP of ``blastx -F``,
+the ``blastp --swipe`` sweep, MCL's dense step) runs on the CUDA card unless
 DIAMOND_TPU_TORCH_DEVICE=cpu asks for the CPU; without a card and without
 that request, the search exits with an error (see utils/device.py for the
 DP routing knobs).
@@ -311,25 +316,13 @@ def _not_ported(what: str, item: str):
 
 def check_ported(args):
     """Exit on a search option whose modules the port does not have yet."""
-    if (args.block_size is not None or args.memory_limit
-            or args.multiprocessing or args.mp_init or args.mp_recover):
-        _not_ported("Blocked search (-b, -M, --multiprocessing)",
-                    "section 1, item 12")
-    if args.iterate is not None:
-        _not_ported("--iterate", "section 1, item 15")
-    if args.global_ranking:
-        _not_ported("-g/--global-ranking", "section 1, item 15")
     if args.mesh or any(v is not None for v in (
             args.coordinator, args.num_procs, args.proc_id)):
         _not_ported("--mesh and multi-process search", "section 1, item 11")
-    if "approx_pident" in args.outfmt[1:]:
-        _not_ported("The approx_pident field", "section 1, item 13")
     if args.masking == "seg":
         _not_ported("--masking seg", "section 1, item 17")
     if args.custom_matrix:
         _not_ported("--custom-matrix", "section 1, item 17")
-    if args.approx_id:
-        _not_ported("--approx-id", "section 1, item 13")
     if args.target_indexed:
         _not_ported("--target-indexed", "section 1, item 17")
 
@@ -349,7 +342,12 @@ def cmd_blastp(args):
     from diamond_tpu_torch.utils.log import ptimer
 
     check_ported(args)
+    validate_filters(args)
+    validate_global_ranking(args)
+    _apply_memory_limit(args)
     device = _device("blastp")
+    if args.block_size is not None:
+        return cmd_blastp_blocked(args)
     with ptimer("cli.load"):
         qb = load_block(args.query)
         tb, taxonomy = load_block(args.db, with_taxonomy=True)
@@ -370,11 +368,13 @@ def cmd_blastp(args):
         masking=args.masking,
         motif_masking=None if args.motif_masking is None else bool(args.motif_masking),
         min_id=args.min_id,
+        approx_min_id=args.approx_id,
         query_cover=args.query_cover,
         subject_cover=args.subject_cover,
         no_self_hits=args.no_self_hits,
         freq_masking=args.freq_masking,
         ext=args.ext,
+        global_ranking=args.global_ranking,
         n_shapes=args.shapes,
         shape_mask=args.shape_mask,
         minimizer_window=args.minimizer_window,
@@ -385,6 +385,14 @@ def cmd_blastp(args):
         from diamond_tpu_torch.align.swipe_all import swipe_all_protein
 
         results = swipe_all_protein(qb, tb, cfg)
+    elif cfg.global_ranking:
+        results = _global_ranking_search(cfg, qb, tb)
+    elif args.iterate is not None:
+        from diamond_tpu_torch.search.iterate import (iterated_search,
+                                                      rounds_for)
+
+        rounds = rounds_for(cfg.sensitivity, args.iterate)
+        results = iterated_search(cfg, qb, tb, rounds)
     else:
         results = Pipeline(cfg, qb, tb, device=device).search()
     if args.outfmt and args.outfmt[0] in ("100", "daa"):
@@ -426,6 +434,8 @@ def cmd_blastx(args):
         raise SystemExit("Query range culling is only supported in frameshift "
                          "alignment mode (option -F).")
     check_ported(args)
+    validate_filters(args)
+    validate_global_ranking(args)
     if args.comp_based_stats >= 2:
         # reference run/config.cpp: matrix adjust needs untranslated queries
         raise SystemExit("This mode of composition based stats is not "
@@ -461,6 +471,7 @@ def cmd_blastx(args):
         query_cover=args.query_cover,
         subject_cover=args.subject_cover,
         translated=True,
+        global_ranking=args.global_ranking,
         n_shapes=args.shapes,
         frame_shift=args.frameshift,
         query_range_culling=args.range_culling,
@@ -472,6 +483,17 @@ def cmd_blastx(args):
         from diamond_tpu_torch.search.blastx import blastx_swipe_all
 
         results = blastx_swipe_all(queries, tb, cfg)
+    elif cfg.global_ranking:
+        cfg.translated = True
+        results = _global_ranking_search(cfg, queries.block, tb,
+                                         queries=queries)
+    elif args.iterate is not None:
+        from diamond_tpu_torch.search.iterate import (iterated_search,
+                                                      rounds_for)
+
+        rounds = rounds_for(cfg.sensitivity, args.iterate)
+        results = iterated_search(cfg, queries.block, tb, rounds,
+                                  queries=queries)
     else:
         results = blastx_search(queries, tb, cfg)
     out = sys.stdout if args.out == "-" else open(args.out, "w")
@@ -505,6 +527,24 @@ def _open_out(args):
     if comp not in ("0", "none", ""):
         raise SystemExit(f"Invalid compression algorithm: {comp}")
     return open(args.out, "w")
+
+
+def validate_filters(args):
+    """reference run/config.cpp:168-169."""
+    if getattr(args, "approx_id", 0) and args.min_id != 0.0:
+        raise SystemExit("Incompatible options: --approx-id, --id.")
+
+
+def validate_global_ranking(args):
+    """reference basic/config.cpp:688, run/config.cpp:114-119."""
+    if args.global_ranking <= 0:
+        return
+    if args.comp_based_stats >= 2:
+        raise SystemExit("Global ranking is not supported with "
+                         "--comp-based-stats >= 2.")
+    if getattr(args, "frameshift", 0):
+        raise SystemExit("Global ranking mode is not compatible with "
+                         "frameshift alignments.")
 
 
 def apply_taxon_filter(tb, taxonomy, taxonlist: str | None,
@@ -556,6 +596,71 @@ def apply_taxon_filter(tb, taxonomy, taxonlist: str | None,
     # letter_count at sequence_file.cpp:788) — mirror for e-value parity
     letters = fb.n_letters + len(fb)
     return fb, ft, letters
+
+
+def _global_ranking_search(cfg, qb, tb, queries=None):
+    """Single-block global ranking (-g): ranking-table search + final
+    full-matrix extension (reference double_indexed.cpp:439-446)."""
+    from diamond_tpu_torch.align.global_ranking import (RankingTable,
+                                                        extend_ranked)
+    from diamond_tpu_torch.search.pipeline import Pipeline
+    from diamond_tpu_torch.stats.cbs import hauser_correction
+
+    translated = queries is not None
+    n_src = len(queries) if translated else len(qb)
+    table = RankingTable(n_src, cfg.global_ranking)
+    Pipeline(cfg, qb, tb, queries=queries, ranking_table=table).search()
+    oid2block = {o: o for o in table.ranked_oids()}
+
+    if translated:
+        contexts_fn = queries.contexts
+    else:
+        def contexts_fn(src):
+            return [(0, qb.seq(src))]
+
+    def biases_fn(src):
+        out = {}
+        for f, q in contexts_fn(src):
+            if len(q) == 0:
+                continue
+            _, i8 = hauser_correction(q, cfg.matrix.matrix32,
+                                      cfg.matrix.background_scores)
+            out[f] = i8
+        return out
+
+    return extend_ranked(table, contexts_fn, biases_fn, tb, oid2block, cfg)
+
+
+def _parse_memory(v: str) -> int:
+    v = str(v).strip()
+    mult = 1
+    if v and v[-1] in "GgMmKk":
+        mult = {"g": 1 << 30, "m": 1 << 20, "k": 1 << 10}[v[-1].lower()]
+        v = v[:-1]
+    return int(float(v) * mult)
+
+
+def _apply_memory_limit(args):
+    """-M/--memory-limit derives block size and index chunks when not
+    explicitly given (reference basic/config.cpp:97-130 block_size)."""
+    ml = getattr(args, "memory_limit", None)
+    if not ml:
+        return
+    import os
+
+    from diamond_tpu_torch.search.config import block_size as _bs
+
+    db_letters = 0
+    try:
+        db_letters = os.path.getsize(args.db)
+    except OSError:
+        pass
+    b, c = _bs(_parse_memory(ml), db_letters, args.sensitivity, False,
+               args.threads)
+    if args.block_size is None:
+        args.block_size = b
+    if args.index_chunks is None:
+        args.index_chunks = c
 
 
 def _make_matrix(args):
@@ -623,6 +728,85 @@ def _parse_fields(outfmt):
     raise SystemExit(f"Unsupported output format: {outfmt[0]}")
 
 
+def cmd_blastp_blocked(args):
+    """Multi-block search (-b): block swap + merged join."""
+    from diamond_tpu_torch.data.dmnd import is_dmnd, read_dmnd
+    from diamond_tpu_torch.data.fasta import read_seqs
+    from diamond_tpu_torch.output.tabular import format_match_line
+    from diamond_tpu_torch.search.blocked import blocked_search
+    from diamond_tpu_torch.search.config import SearchConfig
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    def load_seqs_ids(path):
+        if is_dmnd(path):
+            ids, seqs = read_dmnd(path, strip_mask=True)
+            return seqs, ids
+        recs = list(read_seqs(path))
+        return [r[1].upper() for r in recs], [r[0] for r in recs]
+
+    qseqs, qids = load_seqs_ids(args.query)
+    provider = None
+    tseqs = tids = None
+    taxonomy = None
+    if (is_dmnd(args.db) and not args.global_ranking
+            and not (args.multiprocessing or args.mp_init
+                     or args.mp_recover)):
+        # out-of-core path: target blocks stream from the .dmnd per
+        # block; only the pos array stays resident
+        from diamond_tpu_torch.data.dmnd import DmndProvider
+
+        provider = DmndProvider(args.db)
+        if args.taxon_k:
+            taxonomy = provider.taxonomy()
+    elif args.taxon_k:
+        tb_tax, taxonomy = load_block(args.db, with_taxonomy=True)
+        tseqs = [tb_tax.seq(i).copy() for i in range(len(tb_tax))]
+        tids = tb_tax.ids
+    else:
+        tseqs, tids = load_seqs_ids(args.db)
+    cfg = SearchConfig(
+        matrix=ScoreMatrix(args.matrix, args.gapopen, args.gapextend),
+        sensitivity=args.sensitivity, comp_based_stats=args.comp_based_stats,
+        max_evalue=args.evalue, max_target_seqs=args.max_target_seqs,
+        toppercent=args.top, index_chunks=args.index_chunks,
+        masking=args.masking, global_ranking=args.global_ranking,
+        n_shapes=args.shapes)
+    if args.multiprocessing or args.mp_init or args.mp_recover:
+        from diamond_tpu_torch.search.blocked import blocked_search_mp
+
+        if not args.parallel_tmpdir:
+            raise SystemExit("--multiprocessing requires --parallel-tmpdir.")
+        res = blocked_search_mp(cfg, qseqs, qids, tseqs, tids,
+                                args.block_size, args.parallel_tmpdir,
+                                init_only=args.mp_init,
+                                recover=args.mp_recover)
+        if res is None:
+            return
+    else:
+        res = blocked_search(cfg, qseqs, qids, tseqs, tids, args.block_size,
+                             taxonomy=taxonomy, taxon_k=args.taxon_k,
+                             target_provider=provider)
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    from diamond_tpu_torch.data.taxonomy import seqid
+
+    qnames = [seqid(i) for i in qids]
+    if provider is not None:
+        # names only for reported targets (ranged id reads)
+        reported = {gt for gq in res for gt, _m in res[gq]}
+        id_map = provider.ids_for(reported)
+        tnames = {k: seqid(v) for k, v in id_map.items()}
+    else:
+        tnames = [seqid(i) for i in tids]
+    fields = _parse_fields(args.outfmt)
+    for gq in sorted(res):
+        for gt, m in res[gq]:
+            for h in m.hsp:
+                out.write(format_match_line(qnames[gq], tnames[gt], h,
+                                            fields) + "\n")
+    if out is not sys.stdout:
+        out.close()
+
+
 def cmd_makedb(args):
     from diamond_tpu_torch.data.dmnd import write_dmnd
     from diamond_tpu_torch.data.fasta import read_seqs
@@ -683,20 +867,40 @@ def _dispatch(args):
         cmd_dbinfo(args)
     elif args.command == "version":
         print("diamond-tpu version 0.1.0 (reference compatibility: 2.2.2)")
+    elif args.command == "realign":
+        from diamond_tpu_torch.cluster.realign import realign
+        from diamond_tpu_torch.data.fasta import read_seqs
+
+        recs = list(read_seqs(args.db))
+        lines = realign([r[1].upper() for r in recs], [r[0] for r in recs],
+                        open(args.clusters).read().splitlines())
+        out = sys.stdout if args.out == "-" else open(args.out, "w")
+        for line in lines:
+            out.write(line + "\n")
+        if out is not sys.stdout:
+            out.close()
     elif args.command == "merge-daa":
         from diamond_tpu_torch.data.daa import merge_daa
 
         merge_daa(args.infiles, args.out)
+    elif args.command in ("cluster", "linclust", "deepclust"):
+        from diamond_tpu_torch.cluster.workflow import run_cluster
+
+        _device(args.command)
+        run_cluster(args)
     elif args.command == "benchmark":
         from diamond_tpu_torch.benchmark import run_benchmark
 
         run_benchmark(device=_device("benchmark"))
+    elif args.command == "greedy-vertex-cover":
+        from diamond_tpu_torch.tools_cmds import cmd_greedy_vertex_cover
+
+        cmd_greedy_vertex_cover(args)
     elif args.command is None:
         build_parser().print_help()
         return 1
     else:
-        item = {"blastn": 16, "cluster": 13, "linclust": 13, "deepclust": 13,
-                "realign": 13}.get(args.command, 17)
+        item = {"blastn": 16}.get(args.command, 17)
         _not_ported(f"The {args.command} command", f"section 1, item {item}")
     return 0
 

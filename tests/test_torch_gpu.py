@@ -9,7 +9,10 @@ one strip, positive biases, tied bests, score-0 rows and pad cells that
 score) and the stage-2 filter (K6, also on pair counts of no multiple of
 16, zero-width windows and hamming_id at the edge) against their plain
 PyTorch versions on the same card tensors and against the host DP or a
-numpy oracle; exact integer equality.
+numpy oracle; exact integer equality.  MCL's dense step (D3, torch ops)
+on a 512-node component against the same ops on the CPU and the numpy
+loop (equal cluster assignments, TF32 off), and blocked blastp (-b) with
+K1 on the card against the host DP.
 Skips without a card: a CUDA kernel has no CPU mode.
 """
 import os
@@ -442,3 +445,70 @@ def test_stage12_kernel_matches_plain_on_gpu(monkeypatch):
     bad[0] = x[0].numel() - 8
     with pytest.raises(ValueError, match="outside"):
         d1.stage12_pairs(x[0], x[1], x[2], bad, *x[4:], 11)
+
+
+@pytest.mark.gpu
+def test_mcl_dense_step_on_gpu():
+    """MCL's dense step (D3) on the card against the same torch ops on the
+    CPU on a 512-node component: equal cluster assignments; every product
+    runs with TF32 off, whatever the global setting, which is restored."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chip_smoke = _smoke()
+    from diamond_tpu_torch.cluster import mcl
+
+    M = chip_smoke.mcl_matrix(*chip_smoke.mcl_graph(9, (512,)))
+    seen = []
+    matmul = torch.Tensor.__matmul__
+
+    def spy(x, y):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return matmul(x, y)
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.Tensor.__matmul__ = spy
+    try:
+        launches = mcl.mcl_dense_torch.launches
+        got = mcl.mcl_dense_torch(M, 2, 2.0, 100, "cuda")
+        assert torch.backends.cuda.matmul.allow_tf32  # restored
+        assert mcl.mcl_dense_torch.launches == launches + 1
+    finally:
+        torch.Tensor.__matmul__ = matmul
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert seen and not any(seen)
+    cpu = mcl.mcl_dense_torch(M, 2, 2.0, 100, "cpu")
+    npl = mcl._mcl_dense(M.copy(), 2, 2.0, 100, None)
+    want = mcl._clusters_from_matrix(cpu)
+    assert len(np.unique(want)) > 1
+    assert np.array_equal(mcl._clusters_from_matrix(got), want)
+    assert np.array_equal(mcl._clusters_from_matrix(npl), want)
+    assert np.abs(got - cpu).max() < 1e-4
+
+
+@pytest.mark.gpu
+def test_blocked_blastp_on_gpu(tmp_path, monkeypatch):
+    """blastp -b with K1 on the card prints what the host DP prints
+    (DIAMOND_TPU_TORCH_DEVICE_DP=0), over 2 query x 5 target blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chip_smoke = _smoke()
+    from diamond_tpu_torch.cli import main
+    from diamond_tpu_torch.ops import swipe_device as sd
+
+    monkeypatch.delenv("DIAMOND_TPU_TORCH_DEVICE", raising=False)
+    recs = chip_smoke.make_proteins(n_seqs=300, n_families=75, seed=5)
+    chip_smoke.write_fasta(tmp_path / "db.faa", recs)
+    chip_smoke.write_fasta(tmp_path / "q.faa", recs[:120])
+    letters = sum(len(s) for _, s in recs)
+    args = ["blastp", "-q", str(tmp_path / "q.faa"), "-d",
+            str(tmp_path / "db.faa"), "-b", f"{letters / 4.5 / 1e9:.9f}"]
+    outs = {}
+    for route in ("card", "host"):
+        if route == "host":
+            monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE_DP", "0")
+        launches = sd.banded_swipe_multi.launches
+        assert main(args + ["-o", str(tmp_path / route)]) == 0
+        outs[route] = (tmp_path / route).read_bytes()
+        assert (sd.banded_swipe_multi.launches > launches) == (route == "card")
+    assert outs["card"] and outs["card"] == outs["host"]

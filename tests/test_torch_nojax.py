@@ -1,7 +1,8 @@
 """The port imports neither jax nor diamond_tpu, and never hides the device.
 
 A subprocess imports every module of diamond_tpu_torch (and chip_smoke.py),
-runs a tiny blastp on the CPU and checks sys.modules; a static scan checks
+runs a tiny blastp on the CPU, also blocked (``-b``) and with ``--iterate``,
+and ``cluster``, and checks sys.modules; a static scan checks
 the sources; the CLI without a card, and without a request for the CPU,
 must exit non-zero saying so.
 """
@@ -25,6 +26,11 @@ for m in pkgutil.walk_packages(diamond_tpu_torch.__path__, "diamond_tpu_torch.")
     importlib.import_module(m.name)
 from diamond_tpu_torch.cli import main
 main(["blastp", "-q", {q2!r}, "-d", {q2!r}, "-o", {out!r}])
+# the search drivers and a cluster cascade load no jax either
+main(["blastp", "-q", {q2!r}, "-d", {q2!r}, "-b", "0.0000005",
+      "-o", {out!r} + ".b"])
+main(["blastp", "-q", {q2!r}, "-d", {q2!r}, "--iterate", "-o", {out!r} + ".i"])
+main(["cluster", "-d", {q2!r}, "-o", {out!r} + ".c"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "diamond_tpu" or m.startswith("diamond_tpu."))
 print("BAD=" + ",".join(bad))
@@ -44,6 +50,9 @@ def test_port_process_loads_no_jax(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD=\n" in r.stdout, r.stdout
     assert len(out.read_text().splitlines()) == 4
+    for ext in (".b", ".i"):
+        assert (tmp_path / f"o.tsv{ext}").read_text() == out.read_text()
+    assert len((tmp_path / "o.tsv.c").read_text().splitlines()) == 4
 
 
 def test_sources_import_no_jax():
@@ -80,8 +89,9 @@ def test_cli_without_card_exits_with_message(tmp_path):
 
 def test_cli_names_roadmap_item_for_unported_options(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, DIAMOND_TPU_TORCH_DEVICE="cpu")
-    for extra in (["-g", "1"], ["-b", "1"], ["--target-indexed"],
-                  ["--mesh", "2"], ["--masking", "seg"], ["--iterate"]):
+    for extra in (["--custom-matrix", Q2], ["--num-procs", "2"],
+                  ["--target-indexed"], ["--mesh", "2"],
+                  ["--masking", "seg"], ["-b", "1", "--mesh", "2"]):
         r = subprocess.run([sys.executable, "-m", "diamond_tpu_torch.cli",
                             "blastp", "-q", Q2, "-d", Q2, *extra],
                            capture_output=True, text=True, env=env,
