@@ -7,7 +7,8 @@
                           [--mp-queries N] [--iterate-queries N]
                           [--global-queries N] [--cluster-seqs N]
                           [--linclust-seqs N] [--deepclust-seqs N]
-                          [--mcl-small N] [--seed S]
+                          [--mcl-small N] [--blastn-reads N]
+                          [--coord-queries N] [--seed S]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
@@ -98,6 +99,21 @@ Phases; each one fails the run on error:
      the MCL run's matrices against the same torch ops on the CPU and the
      numpy loop (equal cluster assignments), timed on the largest against
      2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
+ 12. the last modules (after path 8's, before 9): ``blastp --masking
+     seg`` and ``blastp --custom-matrix`` (the 20 x 20 golden file, gap
+     penalties 11/1; the ALP run timed, in an empty TMPDIR of its own) as
+     self-searches on both routes (equal shas, K1 on the card route);
+     ``makeidx`` (timed) then ``--target-indexed`` on both routes (the
+     self-search's sha); the tool commands on the protein set (wall and
+     sha each; ``test`` must launch K1, ``info`` name the card); ``blastn``
+     of seeded reads of 500-3000 nt from both strands of 10 random 100 kb
+     sequences (host DP; >= 95 % on their source and strand);
+     ``blastp --mesh 1`` (the self-search's sha through the sharded
+     DeviceDP) and ``blastp --swipe --mesh 1`` with the device DP off (the
+     --swipe path's sha, K4 launched, its time a launch); ``--coordinator``
+     runs of ``blastp --mesh N`` at 2,000 queries, one rank (NCCL) and two
+     ranks sharing the card (Gloo), each rank's output equal to one
+     process's, and ``parallel.dist_worker`` with two ranks on the card;
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -323,6 +339,55 @@ def make_reads(proteins, n_reads: int, min_len: int, max_len: int,
             dna = dna.translate(comp)[::-1]
         reads.append((f"read{r:05d}_{pid}", dna))
     return reads
+
+
+def make_dna(n_refs: int, ref_len: int, n_reads: int, min_len: int,
+             max_len: int, subst: tuple = (0.03, 0.03),
+             indels_per_kb: float = 0.0, seed: int = 0):
+    """A seeded nucleotide set for blastn: n_refs random sequences of
+    ref_len nt and n_reads reads, each a window of [min_len, max_len] nt of
+    a random reference with a substitution rate drawn from ``subst`` (low,
+    high) and ``indels_per_kb`` single-nucleotide insertions or deletions
+    per kb, every other read reverse complemented.  Returns (refs, reads)
+    as [(name, dna)]; a read's name is ``read<k>_<plus|minus>_<ref name>``."""
+    rng = np.random.default_rng(seed)
+    refs = [(f"ref{k}", "".join(np.array(list("ACGT"))[
+        rng.integers(0, 4, ref_len)])) for k in range(n_refs)]
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for r in range(n_reads):
+        name, ref = refs[int(rng.integers(n_refs))]
+        L = int(rng.integers(min_len, max_len + 1))
+        a = int(rng.integers(len(ref) - L + 1))
+        dna = list(ref[a:a + L])
+        rate = float(rng.uniform(*subst))
+        for p in np.flatnonzero(rng.random(len(dna)) < rate):
+            dna[p] = "ACGT"[int(rng.integers(4))]
+        for _ in range(int(rng.poisson(indels_per_kb * len(dna) / 1000))):
+            p = int(rng.integers(len(dna)))
+            if rng.random() < 0.5:
+                dna.insert(p, "ACGT"[int(rng.integers(4))])
+            else:
+                del dna[p]
+        dna = "".join(dna)
+        strand = "minus" if r % 2 else "plus"
+        if r % 2:
+            dna = dna.translate(comp)[::-1]
+        reads.append((f"read{r:04d}_{strand}_{name}", dna))
+    return refs, reads
+
+
+def dna_source_hits(lines):
+    """Reads whose hit lines include their source reference on the right
+    strand (blastn -f 6: a minus-strand hit prints sstart > send)."""
+    out = set()
+    for ln in lines:
+        f = ln.split("\t")
+        _, strand, src = f[0].split("_", 2)
+        minus = int(f[8]) > int(f[9])
+        if f[1] == src and minus == (strand == "minus"):
+            out.add(f[0])
+    return out
 
 
 def write_fasta(path, recs):
@@ -946,8 +1011,11 @@ def cli_worker(argv) -> int:
     t0 = time.perf_counter()
     rc = cli_main(argv) or 0
     torch.cuda.synchronize()
+    import torch.distributed as dist
+
     print("WORKER_STATS=" + json.dumps(dict(
         rc=rc, wall_s=round(time.perf_counter() - t0, 3),
+        backend=dist.get_backend() if dist.is_initialized() else None,
         k1=sd.banded_swipe_multi.launches,
         busy_s=sum(a.elapsed_time(b) for a, b in events) / 1e3,
         max_memory_allocated=torch.cuda.max_memory_allocated())))
@@ -1116,6 +1184,10 @@ def main(argv=None):
                     help="sequences of the deepclust run")
     ap.add_argument("--mcl-small", type=int, default=200,
                     help="sequences in small families beside MCL_FAMILIES")
+    ap.add_argument("--blastn-reads", type=int, default=200,
+                    help="reads of the blastn run")
+    ap.add_argument("--coord-queries", type=int, default=2_000,
+                    help="queries of the --coordinator runs")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -2114,6 +2186,258 @@ def main(argv=None):
               f"largest clusters {sizes_out[:8]}")
         paths["d3"] = dict(launches={"d3": card["d3"][0]})
         d3_mats = card["d3"][2]
+
+        # -- 16-22. the last modules ported: seg, custom matrices, the seed
+        # index, the tool commands, blastn, --mesh and several processes --
+        phase("blastp --masking seg (K1)")
+        qf = os.path.join(tmp, "q.faa")  # the main path's queries
+        out = both("blastp-seg", ["blastp", "-q", qf, "-d", db, "--masking",
+                                  "seg"], n_q, "queries", "k1")
+        paths["seg"] = out["card"][0]
+
+        phase("blastp --custom-matrix (ALP on the host, K1)")
+        custom = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "goldens", "custom_blosum62_20x20.txt")
+        from diamond_tpu_torch.stats import alp_exact
+
+        alp_fn, alp_s = alp_exact.gapped_params_exact, []
+
+        def timed_alp(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return alp_fn(*a, **kw)
+            finally:
+                alp_s.append(time.perf_counter() - t0)
+
+        # the ALP cache lives under $TMPDIR (diamond_tpu_alp_<uid>, a name
+        # diamond_tpu uses too): an empty directory of this run's own, so
+        # the port computes its own parameters
+        alp_tmp = os.path.join(tmp, "alp_tmpdir")
+        os.makedirs(alp_tmp)
+        saved_tmp = (os.environ.get("TMPDIR"), tempfile.tempdir)
+        os.environ["TMPDIR"], tempfile.tempdir = alp_tmp, alp_tmp
+        try:
+            out = both("blastp-custom", ["blastp", "-q", qf, "-d", db,
+                                         "--custom-matrix", custom,
+                                         "--gapopen", "11", "--gapextend",
+                                         "1"], n_q, "queries", "k1",
+                       patches=[(alp_exact, "gapped_params_exact",
+                                 timed_alp)])
+        finally:
+            if saved_tmp[0] is None:
+                os.environ.pop("TMPDIR", None)
+            else:
+                os.environ["TMPDIR"] = saved_tmp[0]
+            tempfile.tempdir = saved_tmp[1]
+        print(f"custom-matrix ALP: {len(alp_s)} run(s) of "
+              f"gapped_params_exact, {sum(alp_s):.2f} s (host), cache in an "
+              f"empty TMPDIR of this run")
+        if len(alp_s) != 1:
+            raise RuntimeError("--custom-matrix: the ALP must run once, on "
+                               "the first route, and be read from the cache "
+                               "on the second")
+        paths["custom"] = out["card"][0]
+
+        phase("makeidx, then blastp --target-indexed (K1)")
+        idx_db = os.path.join(tmp, "idx.faa")
+        write_fasta(idx_db, recs)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["makeidx", "-d", idx_db])
+        t_idx = time.perf_counter() - t0
+        print(f"makeidx: {len(recs)} sequences in {t_idx:.2f} s, "
+              f"{os.path.getsize(idx_db + '.seed_idx')} bytes")
+        if rc:
+            raise RuntimeError("makeidx failed")
+        out = both("blastp-target-indexed", ["blastp", "-q", qf, "-d", idx_db,
+                                             "--target-indexed"],
+                   n_q, "queries", "k1")
+        if out["card"][0]["sha"] != paths["k1"]["sha"]:
+            raise RuntimeError("--target-indexed changed blastp's output")
+        print(f"blastp-target-indexed: sha {out['card'][0]['sha']} equals "
+              f"the unindexed self-search's")
+
+        phase("tool commands (host code; test launches K1)")
+        fq = os.path.join(tmp, "set.fq")
+        write_fastq(fq, recs[:2000])
+        dna_refs, dna_reads = make_dna(10, 1_000, 20, 400, 600,
+                                       seed=args.seed + 30)
+        pairs_f = os.path.join(tmp, "pairs.fna")
+        write_fasta(pairs_f, [x for k in range(10)
+                              for x in (dna_refs[k], dna_reads[k])])
+        tool_runs = (
+            ("getseq", ["getseq", "-d", db, "-o", "FILE"]),
+            ("random-seqs", ["random-seqs", "-d", db, "-n", "100", "-o",
+                             "FILE"]),
+            ("mask", ["mask", "-q", db, "-o", "FILE"]),
+            ("fastq2fasta", ["fastq2fasta", "-q", fq, "-o", "FILE"]),
+            ("reverse", ["reverse", "-q", db, "-o", "FILE"]),
+            ("hashseqs", ["hashseqs", "-q", db]),
+            ("split", ["split", "-q", db, "--chunk-size",
+                       f"{n_letters / 3.5 / 1e9:.9f}", "--prefix",
+                       os.path.join(tmp, "vol")]),
+            ("listseeds", ["listseeds", "-d", db, "-n", "20"]),
+            ("smith-waterman", ["smith-waterman", "-q", pairs_f]),
+            ("info", ["info"]),
+            ("test", ["test"]),
+        )
+        import gzip
+
+        for name, argv in tool_runs:
+            zero_counts()
+            target = os.path.join(tmp, f"tool_{name}.out")
+            argv = [target if a == "FILE" else a for a in argv]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            wall = time.perf_counter() - t0
+            data = (open(target, "rb").read() if target in argv
+                    else buf.getvalue().encode())
+            if name == "split":
+                vols = sorted(f for f in os.listdir(tmp)
+                              if f.startswith("vol"))
+                data = b"".join(gzip.open(os.path.join(tmp, f)).read()
+                                for f in vols)
+                if len(vols) < 3:
+                    raise RuntimeError("split wrote too few volumes")
+            counts = launch_counts()
+            print(f"tool {name}: {wall:.2f} s, {len(data)} bytes, sha "
+                  f"{hashlib.sha256(data).hexdigest()[:16]}; launches "
+                  f"{counts}")
+            if rc or not data:
+                raise RuntimeError(f"{name} exited {rc} or wrote nothing")
+            if name == "info" and kind not in data.decode():
+                raise RuntimeError("info does not name the card")
+            if name == "test":
+                if data != b"Self test OK.\n" or counts["k1"] == 0:
+                    raise RuntimeError("test failed or never launched K1")
+                paths["test"] = dict(launches=counts)
+            elif any(counts.values()):
+                raise RuntimeError(f"{name} launched a kernel")
+
+        phase("blastn (host DP with traceback, as in the reference)")
+        dna_refs, dna_reads = make_dna(10, 100_000, args.blastn_reads, 500,
+                                       3000, subst=(0.01, 0.05),
+                                       indels_per_kb=1.0,
+                                       seed=args.seed + 31)
+        refs_f = os.path.join(tmp, "dna_refs.fna")
+        reads_f = os.path.join(tmp, "dna_reads.fna")
+        write_fasta(refs_f, dna_refs)
+        write_fasta(reads_f, dna_reads)
+        print(f"blastn set: {len(dna_reads)} reads of 500-3000 nt "
+              f"({sum(len(x) for _, x in dna_reads)} nt), both strands, of "
+              f"10 random 100 kb sequences, 1-5 % substitutions, ~1 indel "
+              f"per kb")
+        res, data = drive("blastn", ["blastn", "-q", reads_f, "-d", refs_f],
+                          os.path.join(tmp, "blastn.out"), host=False)
+        report("blastn", res, len(dna_reads), "reads")
+        hit = dna_source_hits(data.decode().splitlines())
+        print(f"blastn: {len(hit)}/{len(dna_reads)} reads hit their source "
+              f"on the right strand; launches {res['launches']}")
+        if len(hit) < 0.95 * len(dna_reads):
+            raise RuntimeError("fewer than 95% of the DNA reads hit their "
+                               "source on the right strand")
+        if any(res["launches"].values()):
+            raise RuntimeError("blastn launched a kernel: its DP is host code")
+
+        phase("blastp --mesh 1 (the sharded DeviceDP, K1)")
+        sharded_calls = [0]
+        launch_sharded = sd.DeviceDP._launch_sharded
+
+        def spy_sharded(self, p):
+            sharded_calls[0] += 1
+            return launch_sharded(self, p)
+
+        res, data = drive("blastp-mesh1", ["blastp", "-q", qf, "-d", db,
+                                           "--mesh", "1"],
+                          os.path.join(tmp, "mesh1.out"), host=False,
+                          patches=[(sd.DeviceDP, "_launch_sharded",
+                                    spy_sharded)])
+        report("blastp-mesh1", res, n_q, "queries")
+        if res["sha"] != paths["k1"]["sha"] or not sharded_calls[0] \
+                or not res["launches"]["k1"]:
+            raise RuntimeError("blastp --mesh 1: output changed, or K1 did "
+                               "not run through the sharded DeviceDP")
+        print(f"blastp-mesh1: sha {res['sha']} equals the self-search's; "
+              f"{sharded_calls[0]} sharded batches, K1 launches "
+              f"{res['launches']['k1']}")
+        paths["mesh1"] = res
+
+        phase("blastp --swipe --mesh 1 (K4 on the mesh's shard)")
+        qsw = os.path.join(tmp, "q_swipe.faa")
+        k4_fn = sud.banded_swipe_uniform_cuda
+        k4_in = timed(k4_fn)
+        k4_in.launches = 0
+        res, data = drive("blastp-swipe-mesh1", ["blastp", "-q", qsw, "-d", db,
+                                                 "--swipe", "--mesh", "1"],
+                          os.path.join(tmp, "swipe_mesh1.out"), host=True,
+                          patches=[(sud, "banded_swipe_uniform_cuda", k4_in)])
+        k4_fn.launches += k4_in.launches
+        res["launches"]["k4"] = k4_in.launches
+        report("blastp-swipe-mesh1", res, n_sw, "queries")
+        k4_busy = res["device_busy_s"]
+        sw_cells = sum(len(x) for _, x in recs[:n_sw]) * n_letters
+        sw_bound, sw_by = bound(sw_cells, K45_OPS, 0)
+        print(f"blastp-swipe-mesh1: K4 launches {k4_in.launches} (one per "
+              f"band and target-length class per query), {k4_busy:.4f} s of "
+              f"card time, {k4_busy * 1e3 / max(k4_in.launches, 1):.4f} ms a "
+              f"launch on {kind} ({name_power}); the path's {sw_cells} "
+              f"matrix cells at {K45_OPS} int32 ops a cell bound it at "
+              f"{sw_bound:.4f} ms ({sw_by}; the padded classes walk more); "
+              f"sha {res['sha']}")
+        if res["sha"] != paths["k2"]["sha"] or not k4_in.launches:
+            raise RuntimeError("blastp --swipe --mesh 1: output differs from "
+                               "--swipe's, or K4 never launched")
+        paths["swipe-mesh1"] = res
+
+        phase("several processes on the one card (torch.distributed)")
+        n_co = min(args.coord_queries, len(recs))
+        qco = fasta_of("q_coord", recs[:n_co])
+        co_argv = ["blastp", "-q", qco, "-d", db]
+        res_one, one = drive("blastp-coord one process", co_argv,
+                             os.path.join(tmp, "coord_one.out"), host=False)
+        report("blastp-coord one process", res_one, n_co, "queries")
+        env = dict(os.environ)
+        env.pop("DIAMOND_TPU_PROF", None)
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        from diamond_tpu_torch.parallel.dist_worker import (free_port,
+                                                            spawn_workers)
+
+        for n_ranks, want_backend in ((1, "nccl"), (2, "gloo")):
+            port = free_port()
+            outs = [os.path.join(tmp, f"coord{n_ranks}_{i}.out")
+                    for i in range(n_ranks)]
+            t0 = time.perf_counter()
+            stats = run_workers(
+                [co_argv + ["--coordinator", f"127.0.0.1:{port}",
+                            "--num-procs", str(n_ranks), "--proc-id", str(i),
+                            "--mesh", str(n_ranks), "-o", outs[i]]
+                 for i in range(n_ranks)], env,
+                timeout=300)
+            wall = time.perf_counter() - t0
+            same = [open(o, "rb").read() == one for o in outs]
+            print(f"blastp-coord {n_ranks} rank(s), --mesh {n_ranks} (each "
+                  f"rank K1 on its shard of every batch, the scores "
+                  f"all-gathered): {wall:.2f} s from launch "
+                  f"to the last exit; backends "
+                  f"{[st['backend'] for st in stats]}; per rank "
+                  + json.dumps(stats) + f"; equal to one process: {same}; "
+                  f"{kind} ({name_power})")
+            if not all(same) or any(st["backend"] != want_backend
+                                    for st in stats) \
+                    or not all(st["k1"] for st in stats):
+                raise RuntimeError(f"blastp-coord {n_ranks}: a rank's output "
+                                   f"differs, its backend is not "
+                                   f"{want_backend}, or it launched no K1")
+        t0 = time.perf_counter()
+        outs = spawn_workers(2, n_seqs=1001, env=env, timeout_s=300)
+        print(f"dist_worker, 2 ranks on the card: "
+              f"{time.perf_counter() - t0:.2f} s; "
+              + " | ".join(o.strip().splitlines()[-1] for o in outs))
+        if not all("OK" in o and "gloo" in o and "K4 launches 0" not in o
+                   for o in outs):
+            raise RuntimeError("dist_worker: a rank failed or ran no K4")
 
     phase("SwipeSweep (diagonal-band full-matrix sweep, K5)")
     letters = [encode(s) for _, s in recs]

@@ -14,12 +14,19 @@ from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
 from diamond_tpu_torch.stats import cbs as cbs_mod
 
 
+_MESH = None
+
+
 def _mesh_for(cfg):
-    """--mesh N sharded scoring is not ported yet (None when off)."""
+    """Cached device mesh for --mesh N sharded scoring (None when off)."""
+    global _MESH
     if not getattr(cfg, "mesh_devices", 0):
         return None
-    raise NotImplementedError(
-        "--swipe --mesh is not ported yet: ROADMAP.md section 1, item 11")
+    if _MESH is None or len(_MESH) != cfg.mesh_devices:
+        from diamond_tpu_torch.parallel.sharded import make_mesh
+
+        _MESH = make_mesh(cfg.mesh_devices)
+    return _MESH
 
 
 # (the device cap lives at ops/swipe_device.FullSweep.MAX_LEN; sequences

@@ -1,25 +1,29 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 The argparse surface is diamond_tpu's (reference src/run/main.cpp:73-234), so
-flags parse identically.  The port runs ``blastp`` (FASTA, ``.dmnd`` and
-BLAST database inputs; ``-b``/``-M`` blocked search, ``--multiprocessing``
-with ``--mp-init``/``--mp-recover``, ``--approx-id``) and ``blastx`` (FASTA
-or FASTQ reads; ``-F``, ``--long-reads``, ``--range-culling``,
-``--strand``, ``--min-orf``, ``--query-gencode``), both with ``--swipe``,
-``-g`` and ``--iterate``, in ``-f 6/0/5/100/101/102/103/104``,
-``benchmark``, the clustering commands ``cluster``, ``deepclust``,
-``linclust`` (``--cluster-algo mcl``, ``--multiprocessing``), ``realign``
-and ``greedy-vertex-cover``, and the database commands ``makedb``,
-``dbinfo``, ``view``, ``merge-daa`` and ``version`` (host code, as in
-diamond_tpu); every other command, and every option whose modules are not
-ported yet, exits with a message naming its ROADMAP.md item.
+flags parse identically, and every command and option diamond_tpu's CLI
+accepts runs here: ``blastp`` and ``blastx`` with all their options (among
+them ``--swipe``, ``-g``, ``--iterate``, ``-b``/``-M``,
+``--multiprocessing``, ``--masking seg``, ``--custom-matrix``,
+``--target-indexed``, ``--mesh N`` and ``--coordinator/--num-procs/
+--proc-id``), ``blastn``, ``makedb``, ``makeidx``, ``dbinfo``, ``view``,
+``merge-daa``, ``version``, the clustering commands, ``benchmark``,
+``test``, and the tool commands (``getseq``, ``random-seqs``, ``mask``,
+``fastq2fasta``, ``info``, ``reverse``, ``hashseqs``, ``split``,
+``listseeds``, ``smith-waterman``, ``greedy-vertex-cover``; ``roc``,
+``rocid``, ``prepdb``, ``reassign`` and ``recluster`` answer as the
+reference does).
 
 The device DP (the extension rounds of ``blastp`` and of every search
 the drivers and the cluster rounds run, the 3-frame DP of ``blastx -F``,
 the ``blastp --swipe`` sweep, MCL's dense step) runs on the CUDA card unless
 DIAMOND_TPU_TORCH_DEVICE=cpu asks for the CPU; without a card and without
 that request, the search exits with an error (see utils/device.py for the
-DP routing knobs).
+DP routing knobs).  ``--mesh N`` shards it over the first N cards (or N CPU
+shards, or the ranks of a ``--coordinator`` process group); with fewer
+cards than N it takes the cards there are, and the output never depends on
+the mesh's size (parallel/sharded.py).  ``blastn`` runs its DP on the host,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -97,16 +101,16 @@ def build_parser():
         sp.add_argument("--subject-cover", type=float, default=0.0)
         # --swipe: exhaustive full-matrix SW, no seeding (reference
         # align/full_db.cpp); --mesh N runs its scoring round sharded over
-        # an N-device jax mesh (framework extension; 0 = single device)
+        # N devices (parallel/sharded.py; 0 = single device)
         sp.add_argument("--swipe", action="store_true")
         # --mesh N also shards the standard blastp/blastx device DP
         # mega-batches (search/pipeline._extend_all -> DeviceDP(mesh=...))
         sp.add_argument("--mesh", dest="mesh", type=int, default=0)
-        # multi-host bring-up (jax.distributed): all three, or the
-        # JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-        # env vars
+        # multi-process bring-up (torch.distributed): all three, or the
+        # DIAMOND_TPU_TORCH_COORDINATOR_ADDRESS / _NUM_PROCESSES /
+        # _PROCESS_ID env vars (utils/device.init_distributed)
         sp.add_argument("--coordinator", default=None,
-                        help="host:port of process 0 (jax.distributed)")
+                        help="host:port of process 0 (torch.distributed)")
         sp.add_argument("--num-procs", type=int, default=None)
         sp.add_argument("--proc-id", type=int, default=None)
         sens = sp.add_mutually_exclusive_group()
@@ -309,24 +313,6 @@ def load_block(path, with_taxonomy: bool = False):
     return (b, None) if with_taxonomy else b
 
 
-def _not_ported(what: str, item: str):
-    raise SystemExit(f"{what} is not ported to diamond_tpu_torch yet "
-                     f"(ROADMAP.md {item})")
-
-
-def check_ported(args):
-    """Exit on a search option whose modules the port does not have yet."""
-    if args.mesh or any(v is not None for v in (
-            args.coordinator, args.num_procs, args.proc_id)):
-        _not_ported("--mesh and multi-process search", "section 1, item 11")
-    if args.masking == "seg":
-        _not_ported("--masking seg", "section 1, item 17")
-    if args.custom_matrix:
-        _not_ported("--custom-matrix", "section 1, item 17")
-    if args.target_indexed:
-        _not_ported("--target-indexed", "section 1, item 17")
-
-
 def _device(command: str) -> str:
     from diamond_tpu_torch.utils.device import NoDeviceError, resolve_device
 
@@ -341,11 +327,11 @@ def cmd_blastp(args):
     from diamond_tpu_torch.search.pipeline import Pipeline
     from diamond_tpu_torch.utils.log import ptimer
 
-    check_ported(args)
     validate_filters(args)
     validate_global_ranking(args)
-    _apply_memory_limit(args)
     device = _device("blastp")
+    _init_distributed(args)
+    _apply_memory_limit(args)
     if args.block_size is not None:
         return cmd_blastp_blocked(args)
     with ptimer("cli.load"):
@@ -379,8 +365,14 @@ def cmd_blastp(args):
         shape_mask=args.shape_mask,
         minimizer_window=args.minimizer_window,
         db_letters=db_letters,
+        mesh_devices=args.mesh,
         algo=args.algo,
     )
+    seed_index = None
+    if args.target_indexed:
+        from diamond_tpu_torch.data.seed_index import load_seed_index
+
+        seed_index = load_seed_index(args.db + ".seed_idx", cfg)
     if args.swipe:
         from diamond_tpu_torch.align.swipe_all import swipe_all_protein
 
@@ -394,7 +386,8 @@ def cmd_blastp(args):
         rounds = rounds_for(cfg.sensitivity, args.iterate)
         results = iterated_search(cfg, qb, tb, rounds)
     else:
-        results = Pipeline(cfg, qb, tb, device=device).search()
+        results = Pipeline(cfg, qb, tb, target_seed_index=seed_index,
+                           device=device).search()
     if args.outfmt and args.outfmt[0] in ("100", "daa"):
         from diamond_tpu_torch.data.daa import write_daa
 
@@ -433,9 +426,9 @@ def cmd_blastx(args):
     if args.range_culling and args.frameshift == 0:
         raise SystemExit("Query range culling is only supported in frameshift "
                          "alignment mode (option -F).")
-    check_ported(args)
     validate_filters(args)
     validate_global_ranking(args)
+    _init_distributed(args)
     if args.comp_based_stats >= 2:
         # reference run/config.cpp: matrix adjust needs untranslated queries
         raise SystemExit("This mode of composition based stats is not "
@@ -477,6 +470,7 @@ def cmd_blastx(args):
         query_range_culling=args.range_culling,
         query_range_cover=args.range_cover,
         db_letters=db_letters,
+        mesh_devices=args.mesh,
         algo=args.algo,
     )
     if args.swipe:
@@ -506,6 +500,80 @@ def cmd_blastx(args):
                   query_names=[i.split()[0] for i in queries.source_ids])
     if out is not sys.stdout:
         out.close()
+
+
+def cmd_blastn(args):
+    """blastn over minimizer chaining + banded extension (reference
+    contrib/dna; the reference ships WITH_DNA off so there is no golden
+    contract — functional output in BLASTN's -outfmt 6 conventions:
+    query always plus strand, subject coordinates reversed on minus).
+    Its DP (with traceback) runs on the host, as in diamond_tpu."""
+    from diamond_tpu_torch.data.fasta import read_seqs
+    from diamond_tpu_torch.data.taxonomy import seqid
+    from diamond_tpu_torch.output.format import format_double, print_e
+    from diamond_tpu_torch.search.blastn import blastn_search
+
+    qrecs = [(i, s) for i, s in read_seqs(args.query)]
+    trecs = [(i, s) for i, s in read_seqs(args.db)]
+    results, (qnames, qseqs), (tnames, tseqs) = blastn_search(
+        qrecs, trecs, reward=args.reward, penalty=args.penalty,
+        gap_open=args.gapopen, gap_extend=args.gapextend,
+        max_evalue=args.evalue)
+    out = sys.stdout if args.out == "-" else open(args.out, "w")
+    for qi in range(len(qnames)):
+        for m in results.get(qi, []):
+            for h in m.hsp:
+                qs, qe = h.query_source_range[0] + 1, h.query_source_range[1]
+                if h.frame:  # minus strand: subject printed reversed
+                    ss, se = h.subject_range[1], h.subject_range[0] + 1
+                else:
+                    ss, se = h.subject_range[0] + 1, h.subject_range[1]
+                out.write("\t".join([
+                    seqid(qnames[qi]), seqid(tnames[m.target_block_id]),
+                    format_double(h.identities * 100.0 / h.length),
+                    str(h.length), str(h.mismatches), str(h.gap_openings),
+                    str(qs), str(qe), str(ss), str(se),
+                    print_e(h.evalue), format_double(h.bit_score)]) + "\n")
+    if out is not sys.stdout:
+        out.close()
+
+
+def _self_test(device: str):
+    """Built-in checks (reference `diamond test`, src/test/test.cpp:54-64;
+    diamond_tpu's ``_self_test``): DeviceDP's banded DP (K1 on a card, its
+    plain version on a CPU the caller asked for) against the host DP's
+    batch and single-job oracles on seeded jobs, plus a bitscore and an
+    e-value spot check; exits non-zero on a failure."""
+    import numpy as np
+
+    from diamond_tpu_torch.ops.banded_swipe import (banded_swipe_batch_np,
+                                                    banded_swipe_np)
+    from diamond_tpu_torch.ops.swipe_device import DeviceDP
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    def check(ok, what):
+        if not ok:
+            raise SystemExit(f"Self test failed: {what}")
+
+    rng = np.random.default_rng(0)
+    m = ScoreMatrix("BLOSUM62")
+    q = rng.integers(0, 20, 120).astype(np.int8)
+    jobs = [(rng.integers(0, 20, 150).astype(np.int8), -32, 32)
+            for _ in range(8)]
+    batch = banded_swipe_batch_np(q, None, jobs, m.matrix32, m.gap_open,
+                                  m.gap_extend)
+    dp = DeviceDP(m.matrix32, m.gap_open, m.gap_extend, device=device)
+    got = dp.run_many([(q, None, jobs)])[0]
+    for (tgt, d0, d1), ref, dev in zip(jobs, batch, got):
+        single = banded_swipe_np(q, tgt, d0, d1, m.matrix32, None,
+                                 m.gap_open, m.gap_extend)
+        check(single.score == ref[0], "batch/single DP mismatch")
+        check(tuple(int(x) for x in ref) == dev, "device/host DP mismatch")
+    check(abs(float(m.bitscore(100)) - 43.1) < 0.2, "bitscore check")
+    m.set_db_letters(1_000_000)
+    ev = float(m.evalue(100, 120, 150))
+    check(0 < ev < 1e-3, "evalue check")
+    print("Self test OK.")
 
 
 def _open_out(args):
@@ -663,9 +731,27 @@ def _apply_memory_limit(args):
         args.index_chunks = c
 
 
-def _make_matrix(args):
-    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+def _init_distributed(args):
+    """Join a torch.distributed process group when --coordinator (or the
+    DIAMOND_TPU_TORCH_COORDINATOR_ADDRESS env) is given; no-op otherwise."""
+    from diamond_tpu_torch.utils.device import init_distributed
 
+    init_distributed(getattr(args, "coordinator", None),
+                     getattr(args, "num_procs", None),
+                     getattr(args, "proc_id", None))
+
+
+def _make_matrix(args):
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix, custom_matrix
+
+    if getattr(args, "custom_matrix", None):
+        if args.gapopen < 0 or args.gapextend < 0:
+            raise SystemExit("Custom scoring matrices require setting the "
+                             "--gapopen and --gapextend options.")
+        if args.comp_based_stats >= 2:
+            raise SystemExit("This mode of composition based stats is not "
+                             "supported with a custom matrix.")
+        return custom_matrix(args.custom_matrix, args.gapopen, args.gapextend)
     return ScoreMatrix(args.matrix, args.gapopen, args.gapextend)
 
 
@@ -888,20 +974,51 @@ def _dispatch(args):
 
         _device(args.command)
         run_cluster(args)
+    elif args.command == "makeidx":
+        from diamond_tpu_torch.data.seed_index import build_seed_index
+        from diamond_tpu_torch.search.config import SearchConfig
+        from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+        block = load_block(args.db)
+        cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"),
+                           sensitivity=args.sensitivity)
+        build_seed_index(args.db + ".seed_idx", block, cfg)
+        print(f"Wrote {args.db}.seed_idx")
+    elif args.command == "test":
+        _self_test(_device("test"))
     elif args.command == "benchmark":
         from diamond_tpu_torch.benchmark import run_benchmark
 
         run_benchmark(device=_device("benchmark"))
+    elif args.command == "blastn":
+        cmd_blastn(args)
     elif args.command == "greedy-vertex-cover":
         from diamond_tpu_torch.tools_cmds import cmd_greedy_vertex_cover
 
         cmd_greedy_vertex_cover(args)
-    elif args.command is None:
+    elif args.command in ("roc", "rocid"):
+        # reference run/main.cpp:156-161
+        raise SystemExit(f"Deprecated command: {args.command}")
+    elif args.command == "prepdb":
+        # reference run/main.cpp:168-172
+        print("Warning: prepdb is deprecated since v2.1.14 and no longer "
+              "needed to use BLAST databases. No action was taken.",
+              file=sys.stderr)
+    elif args.command in ("reassign", "recluster"):
+        # reference main.cpp:182-193: temporarily removed upstream
+        ver = "v2.2.1" if args.command == "reassign" else "v2.1.25"
+        print(f"{args.command.capitalize()} has been temporarily removed "
+              f"for {ver}. No action was taken.", file=sys.stderr)
+    elif args.command in ("getseq", "random-seqs", "mask", "fastq2fasta",
+                          "info", "reverse", "hashseqs", "split", "listseeds",
+                          "smith-waterman"):
+        from diamond_tpu_torch import tools_cmds
+
+        fn = getattr(tools_cmds, "cmd_" + args.command.replace("-", "_"))
+        fn(args)
+    else:
         build_parser().print_help()
         return 1
-    else:
-        item = {"blastn": 16}.get(args.command, 17)
-        _not_ported(f"The {args.command} command", f"section 1, item {item}")
     return 0
 
 

@@ -209,19 +209,43 @@ def banded_swipe_multi_plain(t_cat, q_cat, bias_cat, jobs, reqs, matrix32,
 # ---------------------------------------------------------------------------
 
 class PackedBatch:
-    """One run_many batch on the device: the kernel's flat inputs with jobs
-    sorted by band class, then by cells, longest first.  ``classes`` lists
-    (rows_per_lane, lo, hi) slices of ``jobs``; ``order[k]`` is the
-    (request, job) of sorted job k and ``d0[k]`` its diagonal start.
+    """One run_many batch: the kernel's flat inputs with jobs sorted by band
+    class, then by cells, longest first.  ``classes`` lists (rows_per_lane,
+    lo, hi) slices of ``jobs``; ``order[k]`` is the (request, job) of sorted
+    job k and ``d0[k]`` its diagonal start; ``R[k]`` its band class.
     ``band_cells`` counts band cells as the host DP's telemetry does
-    (align/wave._count_cells); ``walk_cells`` the cells the kernel walks."""
+    (align/wave._count_cells); ``walk_cells`` the cells the kernel walks.
+    The arrays are numpy until ``on(device)`` puts them on a device."""
 
     __slots__ = ("t_cat", "q_cat", "bias_cat", "jobs", "reqs", "classes",
-                 "order", "d0", "n_jobs", "band_cells", "walk_cells")
+                 "order", "d0", "R", "n_jobs", "band_cells", "walk_cells")
+
+    def on(self, device, lo: int = 0, hi: int | None = None) -> "PackedBatch":
+        """Jobs [lo, hi) of this host batch, their inputs on ``device`` (the
+        letters and requests whole)."""
+        hi = self.n_jobs if hi is None else hi
+        p = PackedBatch()
+        dev = torch.device(device)
+        for name in ("t_cat", "q_cat", "bias_cat", "reqs"):
+            setattr(p, name, torch.from_numpy(getattr(self, name)).to(dev))
+        jobs = self.jobs[lo:hi]
+        p.jobs = torch.from_numpy(jobs.astype(np.int32)).to(dev)
+        p.R = self.R[lo:hi]
+        bounds = np.flatnonzero(np.diff(p.R)) + 1
+        los = np.concatenate([[0], bounds])
+        his = np.concatenate([bounds, [hi - lo]])
+        p.classes = [(int(p.R[a]), int(a), int(b)) for a, b in zip(los, his)
+                     if b > a]  # an empty slice has no class
+        p.order, p.d0 = self.order[lo:hi], self.d0[lo:hi]
+        p.n_jobs = hi - lo
+        p.walk_cells = int((jobs[:, 1] * 32 * p.R).sum())
+        p.band_cells = self.band_cells if (lo, hi) == (0, self.n_jobs) else None
+        return p
 
 
 def pack_requests(requests, device) -> PackedBatch | None:
-    """Flatten run_many's requests into the kernel's inputs on ``device``."""
+    """Flatten run_many's requests into the kernel's inputs on ``device``
+    (None: numpy arrays, for ``PackedBatch.on``)."""
     n_req = len(requests)
     q_lens = np.fromiter((len(q) for q, _, _ in requests), np.int64, n_req)
     q_offs = np.zeros(n_req, np.int64)
@@ -254,30 +278,20 @@ def pack_requests(requests, device) -> PackedBatch | None:
     np.cumsum(t_len[:-1], out=t_off[1:])
     R = np.array([rows_per_lane(int(b)) for b in band], np.int64)
     perm = np.lexsort((-(t_len * band), R))
-    jobs = np.stack([t_off, t_len, d0, band, info[:, 3]], axis=1)[perm]
-    t_cat = (np.concatenate([np.asarray(t, dtype=np.int8) for t in targets])
-             if t_len.sum() else np.zeros(0, np.int8)) & 31
     p = PackedBatch()
-    Rs = R[perm]
-    bounds = np.flatnonzero(np.diff(Rs)) + 1
-    los = np.concatenate([[0], bounds])
-    his = np.concatenate([bounds, [n]])
-    p.classes = [(int(Rs[lo]), int(lo), int(hi)) for lo, hi in zip(los, his)]
+    p.jobs = np.stack([t_off, t_len, d0, band, info[:, 3]], axis=1)[perm]
+    p.t_cat = (np.concatenate([np.asarray(t, dtype=np.int8) for t in targets])
+               if t_len.sum() else np.zeros(0, np.int8)) & 31
+    p.q_cat, p.bias_cat = q_cat, bias_cat
+    p.reqs = np.stack([q_offs, q_lens], axis=1).astype(np.int32)
+    p.R = R[perm]
     p.order = [order[k] for k in perm]
-    p.d0 = jobs[:, 2].copy()
+    p.d0 = p.jobs[:, 2].copy()
     p.n_jobs = n
-    p.walk_cells = int((t_len * 32 * R).sum())
     j0 = np.maximum(0, -d0 - band + 1)
     j1 = np.minimum(t_len, q_lens[info[:, 3]] - d0)
     p.band_cells = int((np.maximum(j1 - j0, 0) * band).sum())
-    dev = torch.device(device)
-    p.t_cat = torch.from_numpy(t_cat).to(dev)
-    p.q_cat = torch.from_numpy(q_cat).to(dev)
-    p.bias_cat = torch.from_numpy(bias_cat).to(dev)
-    p.jobs = torch.from_numpy(jobs.astype(np.int32)).to(dev)
-    p.reqs = torch.from_numpy(
-        np.stack([q_offs, q_lens], axis=1).astype(np.int32)).to(dev)
-    return p
+    return p if device is None else p.on(device)
 
 
 class DeviceDP:
@@ -288,15 +302,34 @@ class DeviceDP:
     (score, subject_pos, query_pos), the score-only output of
     ops/banded_swipe.banded_swipe_batch_np.  Bands above MAX_DEVICE_BAND
     are the caller's to route elsewhere (``job_fits_device``).
+
+    With ``mesh`` (``parallel/sharded.Mesh``, the counterpart of the
+    reference's ``DeviceDP(mesh=...)``) each batch's jobs are split into one
+    contiguous range per shard, of about equal walked cells; each shard runs
+    K1 on its device (its plain version on a CPU shard), and the results are
+    put back in job order, across ranks by all_gather.  The results are
+    those of the unsharded DeviceDP; ``dispatch_count`` counts this
+    process's launches on all of its shards.
     """
 
     def __init__(self, matrix32, gap_open: int, gap_extend: int,
-                 device: str | None = None):
-        self.device = torch.device(resolve_device(device))
-        self._m32 = torch.tensor(np.asarray(matrix32), dtype=torch.int32,
-                                 device=self.device)
+                 device: str | None = None, mesh=None):
+        self.mesh = mesh
+        self._m32_host = np.ascontiguousarray(matrix32, dtype=np.int32)
+        self._m32_on = {}
+        self.device = self._m32 = None
+        if mesh is None:
+            self.device = torch.device(resolve_device(device))
+            self._m32 = self.matrix_on(self.device)
         self.go = gap_open + gap_extend
         self.ge = gap_extend
+
+    def matrix_on(self, device):
+        """The int32 matrix on ``device``, copied once."""
+        dev = torch.device(device)
+        if dev not in self._m32_on:
+            self._m32_on[dev] = torch.from_numpy(self._m32_host).to(dev)
+        return self._m32_on[dev]
 
     def run_many(self, requests):
         global dispatch_wait_s
@@ -310,12 +343,15 @@ class DeviceDP:
         """One launch of ``kernel`` per band class of a packed batch; returns
         (best, max_col, max_row) int32 tensors in the batch's job order."""
         global dispatch_count, dispatch_cells
+        m32 = self.matrix_on(p.t_cat.device)
         outs = []
         for R, lo, hi in p.classes:
             outs.append(kernel(p.t_cat, p.q_cat, p.bias_cat, p.jobs[lo:hi],
-                               p.reqs, self._m32, self.go, self.ge, R))
+                               p.reqs, m32, self.go, self.ge, R))
         dispatch_count += len(p.classes)
         dispatch_cells += p.walk_cells
+        if not outs:
+            return tuple(torch.zeros(0, dtype=torch.int32) for _ in range(3))
         return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
 
     def _run_many(self, requests):
@@ -342,12 +378,33 @@ class DeviceDP:
             return out
         pcount("ext.device_jobs", p.n_jobs)
         pcount("ext.device_cells", p.band_cells)
-        res = torch.stack(self.launch(p)).cpu().numpy().astype(np.int64)
-        best, col, row = res
+        if self.mesh is None:
+            res = torch.stack(self.launch(p)).cpu().numpy()
+        else:
+            res = self._launch_sharded(p)
+        best, col, row = res.astype(np.int64)
         i_true = col + p.d0 + row
         for k, (r, kk) in enumerate(p.order):
             out[r][kk] = (int(best[k]), int(col[k]), int(i_true[k]))
         return out
+
+    def _launch_sharded(self, p: PackedBatch) -> np.ndarray:
+        """int32 [3, n_jobs]: the host batch's jobs split over the mesh, each
+        shard's range launched on its device, gathered in job order."""
+        from diamond_tpu_torch.parallel.sharded import gather_shards
+
+        n_sh = len(self.mesh)
+        cells = np.cumsum(p.jobs[:, 1] * p.R)
+        cuts = [0] + [int(np.searchsorted(cells, cells[-1] * s / n_sh,
+                                          side="right"))
+                      for s in range(1, n_sh)] + [p.n_jobs]
+        local = {}
+        for s in self.mesh.local():
+            ps = p.on(self.mesh[s], cuts[s], cuts[s + 1])
+            local[s] = torch.stack(self.launch(ps)).cpu().numpy()
+        sizes = [cuts[s + 1] - cuts[s] for s in range(n_sh)]
+        return np.concatenate(gather_shards(self.mesh, local, sizes, 3),
+                              axis=1)
 
 
 # ---------------------------------------------------------------------------

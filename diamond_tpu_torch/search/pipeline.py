@@ -1126,13 +1126,17 @@ class Pipeline:
             from diamond_tpu_torch.align.wave import extend_wave
             from diamond_tpu_torch.ops.swipe_device import DeviceDP
 
-            if getattr(self.cfg, "mesh_devices", 0):
-                raise NotImplementedError(
-                    "--mesh is not ported yet: ROADMAP.md section 1, "
-                    "item 11")
             mat = self.cfg.matrix
+            mesh = None
+            if getattr(self.cfg, "mesh_devices", 0):
+                # --mesh N: shard each device mega-batch's tiles over the
+                # 'db' mesh axis (the reference's multi-process DB split,
+                # double_indexed.cpp:346-396, as ICI-parallel shards)
+                from diamond_tpu_torch.parallel.sharded import make_mesh
+
+                mesh = make_mesh(self.cfg.mesh_devices, self.device)
             device = DeviceDP(mat.matrix32, mat.gap_open, mat.gap_extend,
-                              device=self.device)
+                              device=self.device, mesh=mesh)
             return extend_wave(self.ctx, by_query, qids, device)
         if self.cfg.threads > 1 and len(qids) > 1 and _can_fork():
             return _extend_parallel(self.ctx, by_query, qids,

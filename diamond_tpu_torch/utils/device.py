@@ -16,10 +16,21 @@ the caller asked for it runs the kernel's plain PyTorch version.
                                    on the card, its plain version on a CPU);
                                    0 or unset: the fused host C++ pass (the
                                    default, as in diamond_tpu)
+
+Multi-process search (``init_distributed``) takes ``--coordinator/
+--num-procs/--proc-id`` or, in their place, the counterparts of diamond_tpu's
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID:
+
+  DIAMOND_TPU_TORCH_COORDINATOR_ADDRESS  host:port of rank 0's rendezvous
+  DIAMOND_TPU_TORCH_NUM_PROCESSES        the world size
+  DIAMOND_TPU_TORCH_PROCESS_ID           this process's rank
+  DIAMOND_TPU_TORCH_DIST_TIMEOUT         seconds to wait for the world to
+                                         form (default 300), then raise
 """
 from __future__ import annotations
 
 import os
+import sys
 
 
 class NoDeviceError(RuntimeError):
@@ -53,3 +64,56 @@ def stage12_device_enabled() -> bool:
     it (any value but "0"); the host pass stays the default."""
     v = os.environ.get("DIAMOND_TPU_TORCH_STAGE12")
     return bool(v) and v != "0"
+
+
+def init_distributed(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None) -> bool:
+    """Join a torch.distributed process group (the counterpart of
+    diamond_tpu's jax.distributed bring-up): ``init_process_group`` over
+    ``tcp://<coordinator>`` with the given world size and rank.  A no-op
+    returning False without a coordinator (argument or environment);
+    idempotent.  Raises if the world cannot form: it never carries on as
+    one process.
+
+    The backend is NCCL when every rank has a card of its own (rank r
+    takes ``cuda:r`` of this host's cards), Gloo on a CPU the caller asked
+    for, and Gloo for ranks that share a card (NCCL refuses two ranks on
+    one device): the kernels still run on the card, only the gathered
+    tensors cross Gloo through host memory.  Each rank prints its backend
+    and device in one line on standard error."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    coordinator = coordinator or env.get("DIAMOND_TPU_TORCH_COORDINATOR_ADDRESS")
+    if not coordinator:
+        return False
+    if num_processes is None and env.get("DIAMOND_TPU_TORCH_NUM_PROCESSES"):
+        num_processes = int(env["DIAMOND_TPU_TORCH_NUM_PROCESSES"])
+    if process_id is None and env.get("DIAMOND_TPU_TORCH_PROCESS_ID"):
+        process_id = int(env["DIAMOND_TPU_TORCH_PROCESS_ID"])
+    if num_processes is None or process_id is None:
+        raise ValueError("a coordinator needs the number of processes and "
+                         "this process's id (--num-procs, --proc-id)")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process id {process_id} outside 0..{num_processes - 1}")
+    device = resolve_device()
+    backend = "gloo"
+    if device == "cuda":
+        n_cards = torch.cuda.device_count()
+        torch.cuda.set_device(process_id % n_cards)
+        device = f"cuda:{process_id % n_cards}"
+        if n_cards >= num_processes:
+            backend = "nccl"
+    timeout = float(env.get("DIAMOND_TPU_TORCH_DIST_TIMEOUT") or 300)
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=timeout))
+    print(f"diamond_tpu_torch: rank {process_id} of {num_processes} joined "
+          f"over {backend} ({device})", file=sys.stderr, flush=True)
+    return True

@@ -12,7 +12,10 @@ PyTorch versions on the same card tensors and against the host DP or a
 numpy oracle; exact integer equality.  MCL's dense step (D3, torch ops)
 on a 512-node component against the same ops on the CPU and the numpy
 loop (equal cluster assignments, TF32 off), and blocked blastp (-b) with
-K1 on the card against the host DP.
+K1 on the card against the host DP.  ``--mesh`` on the card's shards:
+``DeviceDP(mesh=...)`` (K1) against the unsharded DeviceDP and
+``sharded_full_scores`` (K4) against the host DP; the ``test`` command on
+the card.
 Skips without a card: a CUDA kernel has no CPU mode.
 """
 import os
@@ -512,3 +515,64 @@ def test_blocked_blastp_on_gpu(tmp_path, monkeypatch):
         outs[route] = (tmp_path / route).read_bytes()
         assert (sd.banded_swipe_multi.launches > launches) == (route == "card")
     assert outs["card"] and outs["card"] == outs["host"]
+
+
+@pytest.mark.gpu
+def test_sharded_devicedp_and_full_scores_on_gpu():
+    """A mesh of the card's shards: DeviceDP(mesh=...) launches K1 on each
+    and equals the unsharded DeviceDP; sharded_full_scores launches K4 and
+    equals the host DP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.ops import swipe_device as sd
+    from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
+    from diamond_tpu_torch.parallel.sharded import (Mesh, make_mesh,
+                                                    sharded_full_scores)
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    reqs = _smoke().dp_requests(seed=12, n_queries=6)
+    want = sd.DeviceDP(m.matrix32, m.gap_open, m.gap_extend,
+                       device="cuda").run_many(reqs)
+    for mesh in (make_mesh(1), Mesh(["cuda:0"] * 3)):
+        launches = sd.banded_swipe_multi.launches
+        dp = sd.DeviceDP(m.matrix32, m.gap_open, m.gap_extend, mesh=mesh)
+        assert dp.run_many(reqs) == want
+        assert sd.banded_swipe_multi.launches - launches >= 16
+    recs = _smoke().make_proteins(n_seqs=41, n_families=10, seed=3)
+    tblock = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    q = tblock.seq(0)
+    jobs = [(tblock.seq(t), -(len(tblock.seq(t)) - 1), len(q))
+            for t in range(len(tblock))]
+    ref = [s for s, _, _ in banded_swipe_batch_np(
+        q, None, jobs, m.matrix32, m.gap_open, m.gap_extend)]
+    for mesh in (make_mesh(1), Mesh(["cuda:0"] * 4)):
+        launches = sud.banded_swipe_uniform_cuda.launches
+        got = sharded_full_scores(mesh, q, None, tblock, m.matrix32,
+                                  m.gap_open, m.gap_extend)
+        assert got.tolist() == ref
+        assert sud.banded_swipe_uniform_cuda.launches > launches
+
+
+@pytest.mark.gpu
+def test_self_test_command_on_gpu(tmp_path):
+    """``test`` runs DeviceDP's K1 on the card against the host DP."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("DIAMOND_TPU_TORCH_DEVICE", None)
+    r = subprocess.run([sys.executable, "-c",
+                        "import sys; from diamond_tpu_torch.cli import main; "
+                        "rc = main(['test']); "
+                        "from diamond_tpu_torch.ops import swipe_device as sd; "
+                        "print('K1', sd.banded_swipe_multi.launches); "
+                        "sys.exit(rc)"],
+                       capture_output=True, text=True, env=env, timeout=600,
+                       cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("Self test OK.\n")
+    assert int(r.stdout.split("K1 ")[1]) > 0

@@ -233,3 +233,28 @@ def test_job_fits_device(monkeypatch):
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", "1000")
     assert not sd.job_fits_device(10, 0, 50)
     assert sd.job_fits_device(20, 0, 50)
+
+
+def test_native_oracle_low_diagonal_fault_is_the_references(blosum):
+    """A fault of the reference's native host scorer that the port copies
+    on purpose (ROADMAP.md section 3): a band starting below diagonal
+    -(t_len - 1) lets it score a match outside the band (153 here, the
+    planted diagonal 55 lies outside [-246, 11)).  The numpy single-job
+    path and K1 (its plain version) score the band (29); from
+    d0 = -(t_len - 1) the native scorer agrees again."""
+    from diamond_tpu_torch.ops.banded_swipe import (
+        banded_swipe_batch_np as port_batch, banded_swipe_np)
+
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 20, 105).astype(np.int8)
+    t = rng.integers(0, 20, 49).astype(np.int8)
+    t[5:30] = q[60:85]
+    m = blosum
+    args = (m.matrix32, m.gap_open, m.gap_extend)
+    assert banded_swipe_batch_np(q, None, [(t, -246, 11)], *args) == \
+        port_batch(q, None, [(t, -246, 11)], *args) == [(153, 29, 84)]
+    assert banded_swipe_np(q, t, -246, 11, m.matrix32, None, m.gap_open,
+                           m.gap_extend).score == 29
+    dp = sd.DeviceDP(*args, device="cpu")
+    assert dp.run_many([(q, None, [(t, -246, 11)])])[0][0][0] == 29
+    assert port_batch(q, None, [(t, -48, 11)], *args)[0][0] == 29
