@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the shipped source of a kernel against an older one on one CUDA card.
 
-    python3 chip_ab.py --kernel k1|k2|k3|k4|k6 --parent OLD.cu [--same-shape]
+    python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j --parent OLD.cu [--same-shape]
                        [--rounds N] [--queries N] [--reads N]
                        [--swipe-queries N] [--seed S]
 
@@ -16,7 +16,10 @@ A, ``--rounds`` times) on the batches of the kernel's path:
       reads) and that window's largest one-read batch;
   k4  the benchmark's first row (band 128) and its full-matrix row (band
       1,024), benchmark.FULL's sizes;
-  k6  the benchmark's stage-2 row, 131,072 pairs x 96 window letters.
+  k6  the benchmark's stage-2 row, 131,072 pairs x 96 window letters;
+  d1j the largest call of D1's fused pass (stage12_join: its two kernels
+      and the scan between them, on its entries, no sync) in the blastp
+      self-search with stage 1/2 on the card.
 
 Each round times each variant three ways: 10 calls launched from Python
 between two events (the per-call time of chip_smoke.py's rows), 10 calls
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -49,12 +53,17 @@ import tempfile
 import numpy as np
 
 SOURCES = {"k1": "banded_swipe", "k2": "full_swipe", "k3": "swipe3",
-           "k4": "uniform_swipe", "k6": "stage2"}
-SYMBOLS = {"k1": ("banded_swipe_multi_launch", "ippppppiiipppp"),
-           "k2": ("full_swipe_launch", "ipppppppiiiipipp"),
-           "k3": ("banded_swipe3_launch", "ipppppiiiippp"),
-           "k4": ("uniform_swipe_mask_launch", "iipppiiiiipppp"),
-           "k6": ("stage2_launch", "ppppiiiipppp")}
+           "k4": "uniform_swipe", "k6": "stage2", "d1j": "stage12_join"}
+# each kernel's C entry points and their argument types (launcher letters)
+SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
+           "k2": [("full_swipe_launch", "ipppppppiiiipipp")],
+           "k3": [("banded_swipe3_launch", "ipppppiiiippp")],
+           "k4": [("uniform_swipe_mask_launch", "iipppiiiiipppp")],
+           "k6": [("stage2_launch", "ppppiiiipppp")],
+           "d1j": [("stage12_join_eval",
+                    "ppppppiippppppppipiiqpipiiiqpiiiiippp"),
+                   ("stage12_join_rows", "pppiippppppp")]}
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64}
 
 
 def cta_shape(band: int):
@@ -69,7 +78,8 @@ def cta_shape(band: int):
 
 
 def build_variants(kernel: str, parent: str, tmp: str):
-    """{"shipped": ctypes function, "parent": ctypes function}."""
+    """{"shipped": ctypes function, "parent": ctypes function}; a tuple of
+    functions for a kernel of several entry points (d1j)."""
     from diamond_tpu_torch.ops import _cuda
 
     src = os.path.join(_cuda.CSRC_DIR, SOURCES[kernel] + ".cu")
@@ -82,7 +92,6 @@ def build_variants(kernel: str, parent: str, tmp: str):
              _cuda.CSRC_DIR, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    sym, args = SYMBOLS[kernel]
     for name, (so, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
@@ -90,11 +99,14 @@ def build_variants(kernel: str, parent: str, tmp: str):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
-        fn = getattr(ctypes.CDLL(so), sym)
-        fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
-                       for a in args]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(so)
+        got = []
+        for sym, args in SYMBOLS[kernel]:
+            fn = getattr(lib, sym)
+            fn.argtypes = [ARG_TYPES[a] for a in args]
+            fn.restype = ctypes.c_int
+            got.append(fn)
+        fns[name] = got[0] if len(got) == 1 else tuple(got)
     return fns
 
 
@@ -401,6 +413,63 @@ def k6_case(args, cs, torch, m):
              n_bytes, make_call)]
 
 
+def d1j_case(args, cs, torch, m):
+    """The largest call of D1's fused pass (stage12_join) in the blastp
+    self-search with stage 1/2 on the card."""
+    from diamond_tpu_torch.cli import main as cli_main
+    from diamond_tpu_torch.ops import stage12_device as d1m
+
+    calls = []
+    join = d1m.stage12_join
+
+    def spy(*a, **kw):
+        out = join(*a, **kw)
+        calls.append((kw["counts"][1], a, kw["counts"], out))
+        return out
+
+    spy.launches = 0  # the wrapper counts on the name its module binds
+
+    recs = cs.make_proteins(seed=args.seed)
+    os.environ["DIAMOND_TPU_TORCH_STAGE12"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        db, qf = os.path.join(tmp, "db.faa"), os.path.join(tmp, "q.faa")
+        cs.write_fasta(db, recs)
+        cs.write_fasta(qf, recs[:args.queries])
+        d1m.stage12_join = spy
+        try:
+            rc = cli_main(["blastp", "-q", qf, "-d", db, "-f", "6", "-o",
+                           os.path.join(tmp, "out")])
+        finally:
+            d1m.stage12_join = join
+            os.environ.pop("DIAMOND_TPU_TORCH_STAGE12")
+    if rc or not calls:
+        raise RuntimeError("the blastp run made no stage12_join call")
+    n, call, counts, rows = max(calls, key=lambda c: c[0])
+    entries = d1m.join_entries(*call[3:6], call[7], call[8], call[9],
+                               counts[0])
+    work, _ = cs.d1j_work(call, len(rows))
+    ops = cs.d1j_ops(work, cs.D1J_OPS)
+    k_join = d1m._k_join
+
+    def make_call(fns, parent=False):
+        out = torch.empty_like(rows)
+
+        def run():
+            d1m._k_join = lambda: fns
+            try:
+                d1m._join_launch(*call, *counts, entries=entries,
+                                 rows_out=out)
+            finally:
+                d1m._k_join = k_join
+
+        run()
+        return run, [out], [(n, "pairs"), (counts[0], "entries")]
+
+    print(f"d1j call: {json.dumps(work)}")
+    return [(f"blastp's largest stage12_join call ({n} pairs)", n, ops / n,
+             cs.d1j_bytes(call, len(rows)), make_call)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
@@ -410,7 +479,7 @@ def main(argv=None):
                     help="launch the older source with the shipped shapes")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--queries", type=int, default=10_000,
-                    help="queries of the blastp run (k1)")
+                    help="queries of the blastp run (k1, d1j)")
     ap.add_argument("--reads", type=int, default=300,
                     help="reads of the long-reads run (k3)")
     ap.add_argument("--swipe-queries", type=int, default=32,
@@ -436,7 +505,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(args.kernel, args.parent, tmp)
         cases = {"k1": k1_case, "k2": k2_case, "k3": k3_case, "k4": k4_case,
-                 "k6": k6_case}[args.kernel](args, cs, torch, m)
+                 "k6": k6_case, "d1j": d1j_case}[args.kernel](args, cs,
+                                                              torch, m)
         for label, cells, ops, n_bytes, make_call in cases:
             bound_ms = max(cells * ops / lanes_per_s,
                            n_bytes / cs.HBM_BYTES_PER_S) * 1e3

@@ -14,7 +14,8 @@ Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
      full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu,
-     stage12.cu; one nvcc per source, all at once, for sm_90a; registers
+     stage12.cu, stage12_join.cu; one nvcc per source, all at once, for
+     sm_90a; registers
      and spills from ptxas) and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
@@ -43,12 +44,20 @@ Phases; each one fails the run on error:
      200,000 random pairs (also against the native host pass at window
      48) and on edge batches (pair counts of no multiple of a block,
      windows 1-48, delimiters at and around the seed, masked letters with
-     high bits, hamming_id 0 to 49);
+     high bits, hamming_id 0 to 49); D1's whole fused pass
+     (stage12_join: stage 1, self-hit, left-most, stage 2, the rows) on
+     seeded joins (STAGE12_FUSED_EDGES: self-search on and off, a chunked
+     index with and without the part table, group_keep, the first shape
+     and later ones, translated short-query windows, skip_lm, seeds beside
+     delimiters), whole and in chunks of 3,000 pairs, against its plain
+     version and the native host pass, row for row;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters), on
      the card, on the host, and a third time with stage 1/2 on the card
-     (DIAMOND_TPU_TORCH_STAGE12=1: D1 must launch and the output equal
-     the other two); ``seed.stage12`` and its sub-phases printed per route;
+     (DIAMOND_TPU_TORCH_STAGE12=1: the fused pass stage12_join must
+     launch, the pair kernel not, and the output equal the other two);
+     ``seed.stage12`` and its spans (upload, card, rows back) printed per
+     route;
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
      (~1 indel per kb) against it; >= 95 % must hit their source protein;
   6. blastx: default six-frame search of 500 seeded 300-1500 nt reads
@@ -95,7 +104,10 @@ Phases; each one fails the run on error:
      path); K2 also over the whole --swipe path, against its bound at 7
      int32 ops a cell (DPX counted) and at the 11 before DPX; K6 also cold
      (the L2 flushed before each launch by writing 256 MB, and by reading
-     them); D1 on the largest launch of the stage-1/2 blastp run; D3 on
+     them); D1's fused pass on the largest call of the stage-1/2 blastp
+     run (kernel only: its two kernels and the scan between them; the
+     bound from the operations the function needs, D1J_OPS), the pair
+     kernel, which no search path launches, on that call's pairs; D3 on
      the MCL run's matrices against the same torch ops on the CPU and the
      numpy loop (equal cluster assignments), timed on the largest against
      2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
@@ -171,6 +183,42 @@ D1_NOTE = ("48 fingerprint letters x 4 (xor, and, compare, add); each "
            "letter a clip walk examines x 1 (its compare); each Kadane step "
            "x 6 (two masks, matrix index, add-max-relu, min 255, best max); "
            "3 for keep")
+# D1's fused pass, the bound's count: the arithmetic the function needs, as
+# this call's data makes the work, whatever the kernel's layout (no entry
+# search, no realignment of words, no address arithmetic; a table lookup is
+# a load, not an operation; 4 letters compared in one int32 op): a pair, an
+# entry (one query occurrence of a group: its query side, once), a pair
+# past stage 1, a pair at the left-most filter (its window of <= 49
+# letters), a Kadane step, a row
+D1J_OPS = dict(pairs=50, entries=151, s1=1, at_leftmost=185, kadane_steps=6,
+               rows=0)
+D1J_NOTE = ("a pair 50: stage 1's 12 target words x 4 (mask, __vcmpeq4 "
+            "against the query's masked word, __popc, add), the threshold, "
+            "the rows' prefix; an entry 151: its offset, its 12 query words "
+            "masked, the two clips (24 words x 1 packed delimiter compare, "
+            "the nearest delimiter each side 4), the left-most geometry 12, "
+            "49 window letters x 2 (the is-aa select of the reduced letter, "
+            "the seed-mask bit); a pair past stage 1 1 (self-hit); a pair at "
+            "the left-most filter 185: 49 window letters x 2 (the reduced "
+            "compare, its match bit), its delimiters 15 (13 words, the "
+            "nearest each side), the matchers and the rest 72; a Kadane step "
+            "6 (as D1's); a row 0 (its writes are bytes)")
+# the same work as csrc/stage12_join.cu issues it (printed beside the
+# bound, not used for it)
+D1J_ISSUED_OPS = dict(pairs=81, entries=933, s1=2, at_leftmost=566,
+                      kadane_steps=6, rows=64)
+D1J_ISSUED_NOTE = (
+    "a pair 81: its entry's binary search over <= 256 in shared memory (8 "
+    "steps x 2), its target index 2, the target's 12 fingerprint words x 2 "
+    "(funnel shift, mask), 12 x 3 (__vcmpeq4, __popc, add), shift and "
+    "compare, the score byte; an entry 933: 5 for its tables, 12 query "
+    "words x 2, two clips of 13 words (funnel shift, and 8 a word for the "
+    "delimiter bits: __vcmpeq4, 5 to take the bits, shift, or) and 3, the "
+    "left-most query side 664 (geometry 12, 26 words realigned, the "
+    "seed-mask bits 106, 52 reduced letters x 10); a pair past stage 1 2 "
+    "(self-hit); a pair at the left-most filter 566 (13 target words "
+    "realigned, their delimiter bits 104, the match bits 13 x 29, the "
+    "matchers and the rest 72); a Kadane step 6; a row 64")
 
 
 def make_proteins(n_seqs: int = 10_000, n_families: int = 2_500,
@@ -959,6 +1007,274 @@ def stage12_join_case(seed: int, sizes=STAGE12_JOIN_GROUPS,
     return letters, join, qp, sp, windows, cutoffs
 
 
+# the fused stage-1/2 pass (stage12_join) on seeded joins: the cases of
+# chip_smoke's D1 phase and tests/test_torch_stage12.py, (label, options of
+# stage12_fused_case)
+STAGE12_FUSED_EDGES = (
+    ("self-search, first shape", dict(self_search=True, sid=0)),
+    ("self-search, a later shape, group_keep",
+     dict(self_search=True, sid=3, keep=True)),
+    ("two blocks, chunked index, part table",
+     dict(self_search=False, sid=1, chunked=True)),
+    ("self-search, chunked, first shape, no part table, group_keep",
+     dict(self_search=True, sid=0, chunked=True, table=False, keep=True)),
+    ("translated short-query windows (qlen <= 85)",
+     dict(self_search=False, sid=2, win85=True)),
+    ("skip_lm", dict(self_search=True, sid=1, skip_lm=True)),
+    ("the query's letters as target, delimiters put into them",
+     dict(self_search=False, sid=2, same_letters=True)),
+)
+# the keyword arguments of Stage12Device.join_rows in a case
+JOIN_KEYS = ("q_letters", "s_letters", "q_seed_mask", "join", "group_keep",
+             "q_starts", "cut", "win", "q_idx_tbl", "s_idx_tbl", "reduction",
+             "shape", "first_shape", "chunked", "do_leftmost", "current",
+             "previous", "part_lo", "part_hi", "seedp_mask", "part_tbl",
+             "hamming_id", "self_search")
+
+
+def _pos_index(letters, starts):
+    """Position -> sequence index (Pipeline._pos_index)."""
+    mark = np.zeros(len(letters), dtype=np.int32)
+    st = starts[1:]
+    np.add.at(mark, st[st < len(mark)], 1)
+    return np.cumsum(mark, dtype=np.int32)
+
+
+def stage12_fused_case(seed: int, n_fam: int = 80, members: int = 6,
+                       self_search: bool = True, sid: int = 0,
+                       chunked: bool = False, table: bool = True,
+                       keep: bool = False, win85: bool = False,
+                       skip_lm: bool = False, big: bool = True,
+                       same_letters: bool = False):
+    """A seeded seed join for the fused stage-1/2 pass, as the keyword
+    arguments of Stage12Device.join_rows (JOIN_KEYS) plus "matrix32" and
+    "s_starts" for native stage12_pipeline_native.
+
+    Families of protein-like sequences (roots of 12-400 letters, a quarter
+    of them at most 85, drawn from the 20 amino acids; members at 5-35 %
+    substitutions, no indels, three in ten without their first 1-6 letters,
+    so that a delimiter lies before the anchor on one side only); 1 % of
+    the letters the mask letter 23, 10 %
+    with a high bit set (32, 64 or 128) as masked letters carry.  Seed
+    groups pair the same offset in members of one family (stage 1 passes
+    often, the left-most filter rejects often), at the first offset every
+    member holds (a delimiter beside the seed there) and at len - 1, plus
+    groups of random positions; most
+    groups hold 1-4 occurrences a side, ``big`` adds a 60 x 45 and a 2 x 700
+    group.  The query block holds every member; with ``self_search`` the
+    target block is the query block, else members drawn anew.  The shapes,
+    reduction and seed partitions are the sensitive mode's (16 shapes; sid
+    picks the shape, the matchers those before it); ``chunked`` takes one of
+    4 index chunks, with the native part table unless ``table`` is False;
+    ``keep`` drops a fifth of the groups (group_keep); ``win85`` gives
+    queries of at most 85 letters their length as stage-2 window (blastx's
+    short-query rule); ``skip_lm`` turns the left-most filter off;
+    ``same_letters`` (not a self-search) makes the target block the query
+    block's letters with 3 % of them turned into delimiters, so that
+    target delimiters cut windows where the letters match; 3 % of
+    the query positions are seed-masked; cutoffs 5 to 40."""
+    from diamond_tpu_torch import native
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.search.config import SearchConfig
+    from diamond_tpu_torch.search.left_most_batch import BatchPatternMatcher
+    from diamond_tpu_torch.search.stages import SeedJoin
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    rng = np.random.default_rng(seed)
+    cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"),
+                       sensitivity="sensitive",
+                       index_chunks=4 if chunked else 1)
+    lens = np.where(rng.random(n_fam) < 0.25, rng.integers(12, 86, n_fam),
+                    rng.integers(86, 401, n_fam))
+    roots = [rng.integers(0, 20, n) for n in lens]
+
+    def family_members():
+        seqs, fam, cut = [], [], []
+        for f, r in enumerate(roots):
+            for _ in range(members):
+                k = int(rng.integers(1, 7)) if rng.random() < 0.3 else 0
+                x = r[k:].copy()
+                sub = rng.random(len(x)) < rng.uniform(0.05, 0.35)
+                x[sub] = rng.integers(0, 20, int(sub.sum()))
+                seqs.append(x)
+                fam.append(f)
+                cut.append(k)
+        order = rng.permutation(len(seqs))
+        return ([seqs[i] for i in order], np.asarray(fam)[order],
+                np.asarray(cut)[order])
+
+    def block(seqs):
+        blk = Block.from_sequences(["".join(AA[c] for c in x) for x in seqs],
+                                   [f"s{i}" for i in range(len(seqs))])
+        letters = blk.letters.copy()
+        inside = letters != 31
+        letters[inside & (rng.random(len(letters)) < 0.01)] = 23
+        high = inside & (rng.random(len(letters)) < 0.1)
+        letters[high] |= rng.choice(np.array([32, 64, -128], np.int8),
+                                    int(high.sum()))
+        return blk, letters
+
+    q_seqs, q_fam, q_cut = family_members()
+    qb, q_letters = block(q_seqs)
+    if self_search:
+        tb, s_letters, t_fam, t_cut = qb, q_letters, q_fam, q_cut
+    elif same_letters:
+        tb, t_fam, t_cut = qb, q_fam, q_cut
+        s_letters = q_letters.copy()
+        s_letters[rng.random(len(s_letters)) < 0.03] = 31
+    else:
+        t_seqs, t_fam, t_cut = family_members()
+        tb, s_letters = block(t_seqs)
+    q_by = [np.nonzero(q_fam == f)[0] for f in range(n_fam)]
+    t_by = [np.nonzero(t_fam == f)[0] for f in range(n_fam)]
+    q_pos, s_pos, q_start, s_start = [], [], [0], [0]
+    for f in range(n_fam):
+        for o in {6, int(lens[f]) - 1, *rng.integers(6, lens[f], 6)}:
+            # the root's offset o in members of family f (a member that
+            # dropped k leading letters holds it at o - k)
+            qm = rng.choice(q_by[f], int(rng.integers(1, 5)))
+            sm = rng.choice(t_by[f], int(rng.integers(1, 5)))
+            q_pos.extend(qb.starts[qm] + o - q_cut[qm])
+            s_pos.extend(tb.starts[sm] + o - t_cut[sm])
+            q_start.append(len(q_pos))
+            s_start.append(len(s_pos))
+
+    def anywhere(blk, n):
+        i = rng.integers(0, len(blk.lengths), n)
+        return blk.starts[i] + rng.integers(0, blk.lengths[i])
+
+    sizes = [(int(rng.integers(1, 4)), int(rng.integers(1, 4)))
+             for _ in range(200)]
+    if big:
+        sizes += [(60, 45), (2, 700)]
+    for nq, ns in sizes:
+        q_pos.extend(anywhere(qb, nq))
+        s_pos.extend(anywhere(tb, ns))
+        q_start.append(len(q_pos))
+        s_start.append(len(s_pos))
+    n_groups = len(q_start) - 1
+    perm = rng.permutation(n_groups)  # groups of both kinds interleaved
+    qs, ss = np.asarray(q_start), np.asarray(s_start)
+    qv, sv = np.asarray(q_pos, np.int64), np.asarray(s_pos, np.int64)
+    q_parts = [qv[qs[g]:qs[g + 1]] for g in perm]
+    s_parts = [sv[ss[g]:ss[g + 1]] for g in perm]
+    join = SeedJoin(
+        keys=np.arange(n_groups, dtype=np.uint64),
+        q_start=np.concatenate([[0], np.cumsum([len(x) for x in q_parts])]
+                               ).astype(np.int64),
+        q_pos=np.concatenate(q_parts).astype(np.int64),
+        s_start=np.concatenate([[0], np.cumsum([len(x) for x in s_parts])]
+                               ).astype(np.int64),
+        s_pos=np.concatenate(s_parts).astype(np.int64))
+    qlens = qb.lengths.astype(np.int64)
+    win = np.where(win85 & (qlens <= 85), qlens, 48).astype(np.int64)
+    shape = cfg.shapes[sid]
+    n_chunk = int(rng.integers(0, 4)) if chunked else 0
+    seedp = cfg.seedp_mask + 1
+    part_lo, part_hi = ((n_chunk * seedp // 4, (n_chunk + 1) * seedp // 4)
+                        if chunked else (0, seedp))
+    return dict(
+        q_letters=q_letters, s_letters=s_letters,
+        q_seed_mask=rng.random(len(q_letters)) < 0.03, join=join,
+        group_keep=(rng.random(n_groups) < 0.8 if keep else None),
+        q_starts=qb.starts, cut=rng.integers(5, 41, len(qlens)).astype(
+            np.int32), win=win,
+        q_idx_tbl=_pos_index(q_letters, qb.starts),
+        s_idx_tbl=(_pos_index(s_letters, tb.starts) if self_search
+                   else None),
+        reduction=cfg.reduction, shape=shape, first_shape=sid == 0,
+        chunked=chunked, do_leftmost=not skip_lm,
+        current=BatchPatternMatcher(cfg.shapes.patterns(0, sid + 1)),
+        previous=BatchPatternMatcher(cfg.shapes.patterns(0, sid)),
+        part_lo=part_lo, part_hi=part_hi, seedp_mask=cfg.seedp_mask,
+        part_tbl=(native.seed_part_table_native(
+            s_letters, shape, cfg.reduction, cfg.seedp_mask)
+            if chunked and table else None),
+        hamming_id=cfg.hamming_filter_id, self_search=self_search,
+        matrix32=cfg.matrix.matrix32, s_starts=tb.starts)
+
+
+def stage12_native_rows(nat, c):
+    """The rows of the fused host pass (nat: a package's native module,
+    its stage12_pipeline_native) on case c, over all its groups."""
+    join = c["join"]
+    n = int((np.diff(join.q_start) * np.diff(join.s_start)).sum())
+    out = np.empty((max(n, 1), 4), dtype=np.int64)
+    keep = c["group_keep"]
+    m = nat.stage12_pipeline_native(
+        c["q_letters"], c["s_letters"], c["q_seed_mask"], join,
+        None if keep is None else keep.astype(np.uint8), 0, len(join.keys),
+        c["q_starts"], c["cut"], c["win"], True, c["hamming_id"],
+        c["matrix32"], c["self_search"], c["s_starts"], c["do_leftmost"],
+        c["reduction"], c["shape"], c["first_shape"], c["chunked"],
+        c["current"], c["previous"], c["part_lo"], c["part_hi"],
+        c["seedp_mask"], out, c["part_tbl"], q_idx_tbl=c["q_idx_tbl"],
+        s_idx_tbl=c["s_idx_tbl"])
+    if m is None:
+        raise RuntimeError("the native library is unavailable")
+    return out[:m]
+
+
+def stage12_fused_rows(dev, c, **kw):
+    """Stage12Device.join_rows on case c."""
+    return dev.join_rows(**{k: c[k] for k in JOIN_KEYS}, **kw)
+
+
+def stage12_route_memory(device: str, seed: int = 9) -> list[dict]:
+    """A --sensitive search (16 shapes, a chunked index) of 60 of
+    make_proteins' sequences against 160, stage 1/2 on the fused pass
+    (DIAMOND_TPU_TORCH_STAGE12=1) on ``device``, the extension skipped.
+    Per Stage12Device.join_rows call: whether it had a partition table,
+    the bytes its Stage12Device keeps cached after it, and on a card the
+    memory allocated before and after it."""
+    import inspect
+
+    import torch
+
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.ops.stage12_device import Stage12Device
+    from diamond_tpu_torch.search import pipeline as pp
+    from diamond_tpu_torch.search.config import SearchConfig
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    cuda = torch.device(device).type == "cuda"
+    real = Stage12Device.join_rows
+    calls = []
+
+    def spy(self, *a, **kw):
+        rec = dict(part_tbl=inspect.signature(real).bind(
+            self, *a, **kw).arguments["part_tbl"] is not None)
+        if cuda:
+            torch.cuda.synchronize()
+            rec["before"] = torch.cuda.memory_allocated()
+        rows = real(self, *a, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+            rec["after"] = torch.cuda.memory_allocated()
+        rec["cached"] = sum(t.numel() * t.element_size()
+                            for _, t in self._tables.values())
+        calls.append(rec)
+        return rows
+
+    recs = make_proteins(n_seqs=160, n_families=40, seed=seed)
+    seqs, ids = [x for _, x in recs], [i for i, _ in recs]
+    cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), sensitivity="sensitive")
+    env = os.environ.get("DIAMOND_TPU_TORCH_STAGE12")
+    os.environ["DIAMOND_TPU_TORCH_STAGE12"] = "1"
+    try:
+        with Patched((Stage12Device, "join_rows", spy),
+                     (pp.Pipeline, "_extend_all", lambda self, h: {})):
+            pp.Pipeline(cfg, Block.from_sequences(seqs[:60], ids[:60]),
+                        Block.from_sequences(seqs, ids),
+                        device=device).search()
+    finally:
+        if env is None:
+            os.environ.pop("DIAMOND_TPU_TORCH_STAGE12")
+        else:
+            os.environ["DIAMOND_TPU_TORCH_STAGE12"] = env
+    return calls
+
+
 def d1_ops(q_blk, s_blk, qp, sp, windows) -> int:
     """D1's int32 operations on these pairs (the D1_*_OPS counts), the clip
     walks and the Kadane walk as long as this data makes them."""
@@ -977,6 +1293,77 @@ def d1_ops(q_blk, s_blk, qp, sp, windows) -> int:
     return int(len(qp) * (48 * D1_FP_OPS + D1_KEEP_OPS)
                + D1_WALK_OPS * int((left + right).sum())
                + D1_STEP_OPS * int((wl + wr).sum()))
+
+
+def d1j_work(call, n_rows: int) -> tuple[dict, tuple]:
+    """The work of one stage12_join call (its positional arguments, tensors
+    on one device), as this data makes it: pairs, entries, pairs past stage
+    1, pairs at the left-most filter, Kadane pairs and steps, rows; and the
+    call's pairs expanded (qp, sp, their query index), in its order."""
+    import torch
+
+    from diamond_tpu_torch.ops import stage12_device as d1m
+
+    q_blk, s_blk, q_mask, q_start, q_pos, s_start, s_pos, keep, g0, g1, a = call
+    dev = q_blk.device
+    e_qp, e_sbeg, e_pstart = d1m.join_entries(q_start, q_pos, s_start, keep,
+                                              g0, g1)
+    n_e = len(e_qp)
+    ent = torch.repeat_interleave(torch.arange(n_e, device=dev),
+                                  (e_pstart[1:] - e_pstart[:-1]).long())
+    n = len(ent)
+    qp = e_qp[ent].long()
+    sp = s_pos[(e_sbeg[ent] + torch.arange(n, device=dev)
+                - e_pstart[ent]).long()].long()
+    f = torch.arange(-d1m.FP_LEFT, d1m.FP_RIGHT, device=dev)
+    s1 = torch.zeros(n, dtype=torch.bool, device=dev)
+    for lo in range(0, n, d1m.PLAIN_CHUNK):
+        hi = min(lo + d1m.PLAIN_CHUNK, n)
+        s1[lo:hi] = (((q_blk[qp[lo:hi, None] + f] ^ s_blk[sp[lo:hi, None] + f])
+                      & 31) == 0).sum(dim=1) >= a.hamming_id
+    qidx = a.q_idx[qp].long()
+    at_lm = s1 & (a.s_idx[sp].long() != qidx) if a.self_search else s1
+    sel = torch.nonzero(at_lm).flatten()
+    if a.do_leftmost and len(sel):
+        wl, wr = d1m.clip_torch(q_blk, qp[sel], 48)
+        sel = sel[d1m.left_most_torch(q_blk, s_blk, q_mask, qp[sel], sp[sel],
+                                      qp[sel] - a.q_starts[qidx[sel]].long(),
+                                      wl, wr, a)]
+    steps = 0
+    for lo in range(0, len(sel), d1m.PLAIN_CHUNK):
+        k = sel[lo:lo + d1m.PLAIN_CHUNK]
+        _, _, _, wl, wr = d1m._gather_clip(q_blk, s_blk, qp[k], sp[k],
+                                           a.win[qidx[k]].long())
+        steps += int((wl + wr).sum())
+    work = dict(pairs=n, entries=n_e, s1=int(s1.sum()),
+                at_leftmost=int(at_lm.sum()) if a.do_leftmost else 0,
+                kadane_pairs=len(sel), kadane_steps=steps, rows=n_rows)
+    return work, (qp, sp, qidx)
+
+
+def d1j_ops(work: dict, per: dict) -> int:
+    """The int32 operations of a stage12_join call's work at the counts
+    per (D1J_OPS or D1J_ISSUED_OPS)."""
+    return sum(work[k] * v for k, v in per.items())
+
+
+def d1j_bytes(call, n_rows: int) -> int:
+    """The bytes the fused pass must move on one call, each input read once
+    and each output written once: the letter blocks, the seed mask, the
+    position and per-query tables (and the partition table), the join's
+    CSR of the call's groups, the rows (16 bytes each)."""
+    q_blk, s_blk, q_mask, q_start, q_pos, s_start, s_pos, keep, g0, g1, a = call
+    tables = [q_blk, q_mask, a.q_idx, a.q_starts, a.cut, a.win, a.m32]
+    if s_blk.data_ptr() != q_blk.data_ptr():
+        tables.append(s_blk)
+    tables += [t for t in (a.s_idx, a.part_tbl) if t is not None]
+    n = sum(t.numel() * t.element_size() for t in tables)
+    qa, qb = (int(x) for x in q_start[[g0, g1]].tolist())
+    sa, sb = (int(x) for x in s_start[[g0, g1]].tolist())
+    n += 2 * 8 * (g1 - g0 + 1) + 8 * (qb - qa) + 4 * (sb - sa)
+    if keep is not None:
+        n += g1 - g0
+    return n + 16 * n_rows
 
 
 # the MCL run's large families: four components of 128-1,024 nodes, so that
@@ -1224,7 +1611,6 @@ def main(argv=None):
     from diamond_tpu_torch.align import swipe_all as pswipe
     from diamond_tpu_torch.align import wave as pwave
     from diamond_tpu_torch.search import pipeline as ppipe
-    from diamond_tpu_torch.search import stages as pstages
     from diamond_tpu_torch.benchmark import FULL as BENCH
     from diamond_tpu_torch.cluster import mcl as pmcl
     from diamond_tpu_torch.constants.alphabet import encode
@@ -1241,7 +1627,7 @@ def main(argv=None):
     # -- 2. build -----------------------------------------------------------
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
-               "swipe_sweep", "stage2", "stage12")
+               "swipe_sweep", "stage2", "stage12", "stage12_join")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -1251,6 +1637,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {k}:", line.strip())
     sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6(), d1m._k_d1()
+    d1m._k_join()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -1611,17 +1998,47 @@ def main(argv=None):
         raise RuntimeError("D1 run_join case missed its split products")
     if d1_mis or d1_host_mis or d1_join_mis:
         raise RuntimeError("D1 disagrees with its references")
+    # D1's whole fused pass on seeded joins: the card against the plain
+    # version (on the CPU) and the native host pass, whole and in chunks
+    d1j_mis = d1j_rows = d1j_calls = 0
+    max_err["d1j"] = 0
+    for k, (label, kw) in enumerate(STAGE12_FUSED_EDGES):
+        c = stage12_fused_case(args.seed + 43 + k, **kw)
+        want = stage12_native_rows(native, c)
+        plain = stage12_fused_rows(
+            d1m.Stage12Device(c["matrix32"], device="cpu"), c)
+        for cap in (d1m.JOIN_PAIR_CAP, 3000):
+            d1m.reset_dispatch_stats()
+            got = stage12_fused_rows(
+                d1m.Stage12Device(c["matrix32"], device="cuda"), c, cap=cap)
+            d1j_calls += d1m.dispatch_count
+            for ref in (want, plain):
+                if got.shape != ref.shape:
+                    d1j_mis += max(len(got), len(ref))
+                else:
+                    d1j_mis += int((got != ref).any(axis=1).sum())
+                    if len(got):
+                        max_err["d1j"] = max(max_err["d1j"], int(
+                            np.abs(got - ref).max()))
+        d1j_rows += len(want)
+    print(f"D1 fused pass parity: {len(STAGE12_FUSED_EDGES)} seeded joins "
+          f"({', '.join(label for label, _ in STAGE12_FUSED_EDGES)}), whole "
+          f"and in chunks of 3,000 pairs ({d1j_calls} calls), {d1j_rows} "
+          f"rows; rows differing from the plain version's or the native "
+          f"pass's: {d1j_mis}")
+    if d1j_mis or not d1j_rows:
+        raise RuntimeError("D1's fused pass disagrees with its references")
 
     # -- 4-9. the paths, each with every launch count set to 0 just before --
     wrappers = dict(k1=sd.banded_swipe_multi, k3=s3.banded_swipe3,
                     k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
                     k5=sd.swipe_sweep, k6=s2.stage2_filter,
-                    d1=d1m.stage12_pairs)
+                    d1=d1m.stage12_pairs, d1j=d1m.stage12_join)
 
     def zero_counts():
         for fn in wrappers.values():
             fn.launches = 0
-        spy_d1.launches = 0
+        spy_d1.launches = spy_d1j.launches = 0
 
     def launch_counts():
         return {k: fn.launches for k, fn in wrappers.items()}
@@ -1642,6 +2059,7 @@ def main(argv=None):
     run_many, launch = sd.DeviceDP.run_many, sd.DeviceDP.launch
     scores3, dispatch_block = s3.swipe3_scores, sd.FullSweep.dispatch_block
     stage12_pairs = d1m.stage12_pairs
+    stage12_join = d1m.stage12_join
     k1_low = [0]  # K1 jobs of a run whose band starts below -(t_len - 1)
     host_dp = [0, 0]  # host DP jobs of a run: such jobs, all jobs
 
@@ -1673,14 +2091,19 @@ def main(argv=None):
         return run_many(self, requests)
 
     def spy_d1(*a, **kw):
-        """D1 as Stage12Device launches it, timed; the largest launch's
-        per-pair inputs copied (they are views of reused buffers).  The
-        wrapper counts its launches on the name its module binds, so they
-        land here and drive() hands them back."""
-        if a[3].shape[0] > captured.get("d1", (-1,))[0]:
-            captured["d1"] = (a[3].shape[0],
-                              list(a[:3]) + [x.clone() for x in a[3:7]], a[7])
+        """D1's pair kernel as Stage12Device would launch it, timed; no
+        search path does.  The wrapper counts its launches on the name its
+        module binds, so they land here and drive() hands them back."""
         return timed(stage12_pairs)(*a, **kw)
+
+    def spy_d1j(*a, **kw):
+        """D1's fused pass as Stage12Device.join_rows calls it, timed; the
+        largest call's arguments and rows kept.  Its launches land here as
+        spy_d1's do."""
+        out = timed(stage12_join)(*a, **kw)
+        if kw["counts"][1] > captured.get("d1j", (-1,))[0]:
+            captured["d1j"] = (kw["counts"][1], a, kw["counts"], out)
+        return out
 
     def spy_k3(strands, jobs, *a):
         n = sum(len(t) * (d1 - d0) for _, t, d0, d1 in jobs)
@@ -1743,6 +2166,7 @@ def main(argv=None):
                          (s3, "swipe3_scores", spy_k3),
                          (sd.FullSweep, "dispatch_block", spy_k2),
                          (d1m, "stage12_pairs", spy_d1),
+                         (d1m, "stage12_join", spy_d1j),
                          *[(mod, "banded_swipe_batch_np", spy_host_dp)
                            for mod in (pext, pwave, pswipe)],
                          (pwave, "_pack_jobs", spy_pack_jobs), *patches):
@@ -1754,7 +2178,8 @@ def main(argv=None):
             os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
             os.environ.pop("DIAMOND_TPU_TORCH_STAGE12", None)
         stage12_pairs.launches += spy_d1.launches
-        spy_d1.launches = 0
+        stage12_join.launches += spy_d1j.launches
+        spy_d1.launches = spy_d1j.launches = 0
         if rc:
             raise RuntimeError(f"{' '.join(argv[:1])} exited {rc}")
         data = open(out, "rb").read()
@@ -1809,44 +2234,11 @@ def main(argv=None):
             raise RuntimeError(f"{name}: the path never launched {kernel}")
         if any(host["launches"].values()):
             raise RuntimeError(f"{name}: the host route launched a kernel")
-        if card["launches"]["d1"]:
+        if card["launches"]["d1"] or card["launches"]["d1j"]:
             raise RuntimeError(f"{name}: stage 1/2 went to the card unasked")
         print(f"{name}: outputs identical ({card['lines']} lines, sha "
               f"{card['sha']}); launches {card['launches']}")
         return out
-
-    inside_s12 = [False]
-
-    def s12_span(label, fn):
-        """fn, its time added to plog.prof[label] while the stage-1/2
-        device route (Pipeline._stage12_device) runs."""
-        def wrapper(*a, **kw):
-            if not inside_s12[0]:
-                return fn(*a, **kw)
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                plog.prof[label] += time.perf_counter() - t0
-        return wrapper
-
-    s12_route = ppipe.Pipeline._stage12_device
-
-    def s12_inside(self, *a, **kw):
-        inside_s12[0] = True
-        try:
-            return s12_route(self, *a, **kw)
-        finally:
-            inside_s12[0] = False
-
-    # the host steps of the stage-1/2 device route, each timed on its own
-    s12_spans = [(ppipe.Pipeline, "_stage12_device", s12_inside)] + [
-        (obj, name, s12_span(f"s12.{name}", getattr(obj, name)))
-        for obj, name in ((pstages, "expand_pairs"),
-                          (Block, "global_to_local"),
-                          (pstages, "clip_window"),
-                          (ppipe, "left_most_filter_batch"),
-                          (ppipe, "_hit_rows"))]
 
     def low_starts(name, out):
         """The jobs whose band starts below diagonal -(t_len - 1), which
@@ -1884,33 +2276,43 @@ def main(argv=None):
             raise RuntimeError("a query did not find itself")
         paths["k1"] = out["card"][0]
         k1_batch = captured["k1"]  # K1 is timed on blastp's largest batch
-        # the third route: stage 1/2 on the card too (D1)
+        # the third route: stage 1/2 on the card too (D1's fused pass)
         res, data = drive("blastp card-stage12",
                           ["blastp", "-q", qf, "-d", db, "-f", "6"],
                           os.path.join(tmp, "blastp_s12.out"), host=False,
-                          stage12=True, patches=s12_spans)
+                          stage12=True)
         report("blastp card-stage12", res, n_q, "queries")
         if data != out["card"][1]:
             raise RuntimeError("blastp: stage 1/2 on the card changed the "
                                "output")
-        if res["launches"]["d1"] == 0 or res["launches"]["k1"] == 0:
-            raise RuntimeError("blastp card-stage12: D1 or K1 never launched")
+        if res["launches"]["d1j"] == 0 or res["launches"]["k1"] == 0:
+            raise RuntimeError("blastp card-stage12: D1's fused pass or K1 "
+                               "never launched")
+        if res["launches"]["d1"]:
+            raise RuntimeError("blastp card-stage12: the pair kernel "
+                               "launched on the fused route")
         print(f"blastp card-stage12: output identical (sha {res['sha']}); "
-              f"D1 launches {res['launches']['d1']}, Stage12Device "
-              f"dispatches {res['s12_dispatches']} (one-hot products and "
-              f"kernel chunks), pairs through D1 {res['s12_kernel_pairs']}, "
-              f"wait {res['s12_wait_s']:.4f} s")
-        paths["d1"] = res
+              f"D1 fused pass launches {res['launches']['d1j']} "
+              f"(Stage12Device.join_rows chunks {res['s12_dispatches']}), "
+              f"pairs {res['s12_kernel_pairs']}, join_rows wall "
+              f"{res['s12_wait_s']:.4f} s")
+        paths["d1j"] = res
         for route, r in (("card", out["card"][0]), ("host", out["host"][0]),
                          ("card-stage12", res)):
             ph = {k: round(r["phases"].get(k, 0.0), 4) for k in (
-                "seed.stage12", "seed.s12_native", "seed.s12_expand",
-                "seed.s12_card", "seed.s12_leftmost")}
+                "seed.stage12", "seed.s12_native", "seed.s12_upload",
+                "seed.s12_card", "seed.s12_rows")}
             print(f"blastp {route} stage 1/2 (s, of {r['wall_s']:.2f} s "
                   f"wall): {json.dumps(ph)}; seed.s12_pairs {r['s12_pairs']}")
-        print("blastp card-stage12, the device route's host steps (s): "
-              + json.dumps({k: round(v, 4) for k, v in res["phases"].items()
-                            if k.startswith("s12.")}))
+        ph_c, ph_h = res["phases"], out["card"][0]["phases"]
+        print(f"seed.stage12 split on {kind} ({name_power}): card route "
+              f"{ph_c.get('seed.stage12', 0.0):.4f} s (upload "
+              f"{ph_c.get('seed.s12_upload', 0.0):.4f}, card "
+              f"{ph_c.get('seed.s12_card', 0.0):.4f}, rows back "
+              f"{ph_c.get('seed.s12_rows', 0.0):.4f}) against the host pass "
+              f"{ph_h.get('seed.stage12', 0.0):.4f} s (native "
+              f"{ph_h.get('seed.s12_native', 0.0):.4f}); blastp wall "
+              f"{res['wall_s']:.2f} s against {out['card'][0]['wall_s']:.2f} s")
         low_starts("blastp", out)
 
         phase("blastx --long-reads (3-frame DP, K3)")
@@ -2754,17 +3156,51 @@ def main(argv=None):
               f"{k6_cold / rows[-1][1][2]:.2f}x the bytes bound; warm kernel "
               f"only {rows[-1][1][4]:.4f} ms; {kind}, {name_power}")
 
-    # D1 on the largest launch of the stage-1/2 blastp run
-    n_d1, xd, hid = captured["d1"]
+    # D1's fused pass on the largest call of the stage-1/2 blastp run: per
+    # call the wrapper (entries, two kernels, scan, the one sync), kernel
+    # only its entries given and its rows preallocated (no sync)
+    n_j, call_j, counts_j, rows_j = captured["d1j"]
+    work_j, (qp_j, sp_j, qidx_j) = d1j_work(call_j, len(rows_j))
+    ops_j = d1j_ops(work_j, D1J_OPS)
+    issued_j = d1j_ops(work_j, D1J_ISSUED_OPS)
+    bytes_j = d1j_bytes(call_j, len(rows_j))
+    entries_j = d1m.join_entries(*call_j[3:6], call_j[7], call_j[8],
+                                 call_j[9], counts_j[0])
+    rows_buf = torch.empty_like(rows_j)
+    print(f"D1 fused call: the largest of the stage-1/2 blastp run's "
+          f"{paths['d1j']['launches']['d1j']} calls, work {json.dumps(work_j)}"
+          f", {ops_j} int32 ops the function needs ({ops_j / n_j:.1f} a "
+          f"pair: {D1J_NOTE}), {bytes_j} bytes (the blocks, seed mask and "
+          f"tables once, the call's join, the rows)")
+    issued_ms, _ = bound(issued_j, 1, 0)
+    print(f"D1 fused call as csrc/stage12_join.cu issues it (a diagnostic, "
+          f"not the bound): {issued_j} int32 ops ({issued_j / n_j:.1f} a "
+          f"pair: {D1J_ISSUED_NOTE}), {issued_ms:.4f} ms at the int32 rate; "
+          f"{kind}, {name_power}")
+    rows.append(("d1j", time_kernel(
+        "d1j", lambda: [d1m.stage12_join(*call_j, counts=counts_j)],
+        lambda: [d1m.stage12_join_torch(*call_j)], n_j, ops_j / n_j,
+        "the mean of this call's work", bytes_j, 20,
+        alone=lambda: [d1m._join_launch(*call_j, *counts_j, entries=entries_j,
+                                        rows_out=rows_buf)],
+        unit="pair")))
+
+    # D1's pair kernel, which no search path launches, on the same call's
+    # pairs expanded, each with its query's window and cutoff
+    a_j = call_j[-1]
+    xd = [call_j[0], call_j[1], a_j.m32, qp_j.int(), sp_j.int(),
+          a_j.win[qidx_j], a_j.cut[qidx_j]]
+    hid = a_j.hamming_id
+    n_d1 = len(qp_j)
     ops_d1 = d1_ops(xd[0], xd[1], xd[3], xd[4], xd[5])
     blocks = xd[0].numel() + (0 if xd[1] is xd[0] else xd[1].numel())
     n_bytes = 16 * n_d1 + blocks + 4 * 32 * 32 + (1 + 4) * n_d1
     out_d1 = (torch.empty(n_d1, dtype=torch.uint8, device="cuda"),
               torch.empty(n_d1, dtype=torch.int32, device="cuda"))
-    print(f"D1 batch: {n_d1} pairs (the largest of the stage-1/2 blastp run's "
-          f"{paths['d1']['launches']['d1']} launches), {ops_d1} int32 ops "
-          f"({ops_d1 / n_d1:.1f} a pair: {D1_NOTE}), {n_bytes} bytes (16 in "
-          f"and 5 out a pair, the letter blocks once)")
+    print(f"D1 pair kernel on the fused call's {n_d1} pairs: {ops_d1} int32 "
+          f"ops ({ops_d1 / n_d1:.1f} a pair: {D1_NOTE}), {n_bytes} bytes (16 "
+          f"in and 5 out a pair, the letter blocks once); launches on the "
+          f"search paths: {paths['d1j']['launches']['d1']}")
     rows.append(("d1", time_kernel(
         "d1", lambda: d1m.stage12_pairs(*xd, hid, checked=True),
         lambda: d1m.stage12_pairs_torch(*xd, hid), n_d1, ops_d1 / n_d1,
@@ -2853,8 +3289,14 @@ def main(argv=None):
                "k5"),
         "k6": ("stage2_filter", "diamond_tpu_torch/csrc/stage2.cu",
                "diamond_tpu/ops/stage2_pallas.py:85 (stage2_pallas)", "bench"),
+        # no search path launches the pair kernel any more: its launches
+        # are those of the stage-1/2 route's run (0), its row off the path
         "d1": ("stage12_pairs", "diamond_tpu_torch/csrc/stage12.cu",
-               "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel)", "d1"),
+               "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel)", "d1j"),
+        "d1j": ("stage12_join", "diamond_tpu_torch/csrc/stage12_join.cu",
+                "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel) with "
+                "the host steps of diamond_tpu/search/pipeline.py:699 "
+                "(_stage12_device)", "d1j"),
         # torch ops (fp32 matmul with TF32 off), not a hand-written kernel:
         # the reference computes this step with XLA outside any Pallas kernel
         "d3": ("mcl_dense_torch", "diamond_tpu_torch/cluster/mcl.py",
@@ -2875,6 +3317,7 @@ def main(argv=None):
         "library_ms": None,
         "kernel_only_ms": only_ms,
         "hand_written": k != "d3",
+        "on_path": k != "d1",
     } for k, (ms, plain_ms, bound_ms, bound_by, only_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -102,10 +102,11 @@ def check_tensors(dev, *named):
 def launcher(name: str, symbol: str, args: str):
     """The C entry point ``symbol`` of ``csrc/<name>.cu`` returning a CUDA
     error code, its arguments typed by ``args``: one letter per argument,
-    ``p`` a pointer (device pointers and the stream), ``i`` an int."""
+    ``p`` a pointer (device pointers and the stream), ``i`` an int, ``q``
+    an unsigned 64-bit int."""
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64}
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int
-                       for a in args]
+        fn.argtypes = [types[a] for a in args]
         fn.restype = ctypes.c_int
     return fn

@@ -701,52 +701,44 @@ class Pipeline:
 
     def _stage12_device(self, join, shape, sid, part_lo, part_hi,
                         skip_lm: bool, group_keep=None):
-        """Stage 1+2 on the card (ops/stage12_device; the two seeding
-        hot loops of SURVEY §7), left-most dedup on host.  Byte-identical
-        to the fused native pass (same pair order, exact integer ops)."""
+        """Stage 1+2, the self-hit test and the left-most filter on the card
+        (ops/stage12_device.Stage12Device.join_rows: the fused join kernel,
+        csrc/stage12_join.cu), in chunks of seed groups with a pair cap; no
+        pair is expanded on the host.  The rows and their order are the
+        fused native pass's (exact integer ops)."""
+        from diamond_tpu_torch import native
         from diamond_tpu_torch.ops.stage12_device import Stage12Device
-        from diamond_tpu_torch.search.stages import _filter_groups
-        from diamond_tpu_torch.utils.log import padd, pcount, perf_counter
+        from diamond_tpu_torch.utils.log import pcount
 
         cfg = self.cfg
-        t0 = perf_counter()  # spans: s12_expand, s12_card, s12_leftmost
+        pairs = np.diff(join.q_start) * np.diff(join.s_start)
         if group_keep is not None:
-            join = _filter_groups(join, group_keep)
-        qp, sp = stages.expand_pairs(join)
-        pcount("seed.s12_pairs", len(qp))
-        if len(qp) == 0:
-            return np.empty((0, 4), dtype=np.int64)
+            pairs = pairs[group_keep.astype(bool)]
+        pcount("seed.s12_pairs", int(pairs.sum()))
         dev = getattr(self, "_s12_dev", None)
         if dev is None:
             dev = self._s12_dev = Stage12Device(cfg.matrix.matrix32,
                                                 device=self.device)
-        qidx, qoff = self.q.global_to_local(qp)
         cut, win = self._per_query_cutoffs()
-        t0 = padd("seed.s12_expand", t0)
-        keep, scores = dev.run_join(self.q.letters, self.t.letters, join,
-                                    qp, sp, win[qidx], cut[qidx],
-                                    cfg.hamming_filter_id)
-        t0 = padd("seed.s12_card", t0)
-        if cfg.self_search:
-            sidx, _ = self.t.global_to_local(sp)
-            keep &= ~(sidx == qidx)
-        qp, sp, scores = qp[keep], sp[keep], scores[keep]
-        qidx, qoff = qidx[keep], qoff[keep]
-        if skip_lm or len(qp) == 0:
-            padd("seed.s12_leftmost", t0)
-            return _hit_rows(qidx, sp, qoff, scores,
-                             np.arange(len(qp), dtype=np.int64))
         chunked = cfg.index_chunks > 1
-        current = self._matcher(sid + 1)
-        previous = self._matcher(sid) if sid > 0 else self._matcher(0)
-        wl, wr = stages.clip_window(self.q.letters, qp, 48)
-        keep3 = left_most_filter_batch(
-            self.q.letters, self.t.letters, self.query_seed_mask,
-            cfg.reduction, qp, sp, qoff.astype(np.int64), wl, wr,
-            shape, sid, chunked, current, previous,
-            part_lo, part_hi, cfg.seedp_mask, cfg.hamming_filter_id)
-        padd("seed.s12_leftmost", t0)
-        return _hit_rows(qidx, sp, qoff, scores, np.nonzero(keep3)[0])
+        part_tbl = None
+        if chunked and not skip_lm:  # shared with the native pass's cache
+            tbls = getattr(self, "_part_tbls", None)
+            if tbls is None:
+                tbls = self._part_tbls = {}
+            part_tbl = tbls.get(sid)
+            if part_tbl is None:
+                part_tbl = tbls[sid] = native.seed_part_table_native(
+                    self.t.letters, shape, cfg.reduction, cfg.seedp_mask)
+        return dev.join_rows(
+            self.q.letters, self.t.letters, self.query_seed_mask, join,
+            group_keep, self.q.starts, cut, win, self._pos_index(self.q),
+            self._pos_index(self.t) if cfg.self_search else None,
+            cfg.reduction, shape, sid == 0, chunked, not skip_lm,
+            self._matcher(sid + 1),
+            self._matcher(sid) if sid > 0 else self._matcher(0),
+            part_lo, part_hi, cfg.seedp_mask, part_tbl,
+            cfg.hamming_filter_id, cfg.self_search)
 
     def _stage12_parallel(self, join, shape, sid, chunk, part_lo, part_hi,
                           group_keep=None):

@@ -25,11 +25,15 @@ ALLOWED = {
     "align/wave.py": ("comment on the lazy torch import", 5),
     "search/pipeline.py": ("device route builds the port's DeviceDP on "
                            "the resolved device, with --mesh over the "
-                           "port's make_mesh; stage 1/2 on the card builds "
-                           "the port's Stage12Device on the resolved "
-                           "device, its spans timed (padd); _can_fork reads "
-                           "the port's stage 1/2 knob; -F extends the "
-                           "block's reads in one call", 55),
+                           "port's make_mesh; stage 1/2 on the card hands "
+                           "the seed join to the port's Stage12Device on "
+                           "the resolved device (join_rows: the whole fused "
+                           "pass, left-most included, on the card, no pair "
+                           "expanded on the host) where the reference "
+                           "expands pairs and runs self-hit, clip and "
+                           "left-most on the host; _can_fork reads the "
+                           "port's stage 1/2 knob; -F extends the block's "
+                           "reads in one call", 99),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "

@@ -6,8 +6,10 @@ at its own interface: every rows-per-lane class with padding rows, 2-16
 strips, low-complexity runs with small gaps), the uniform-band kernel (K4,
 its warp and CTA paths), the diagonal-band sweep (K5, also on queries above
 one strip, positive biases, tied bests, score-0 rows and pad cells that
-score) and the stage-2 filter (K6, also on pair counts of no multiple of
-16, zero-width windows and hamming_id at the edge) against their plain
+score), the stage-2 filter (K6, also on pair counts of no multiple of
+16, zero-width windows and hamming_id at the edge), the stage-1/2 pair
+filter (D1) and D1's whole fused pass over seed joins (stage12_join, also
+against the native host pass, whole and in chunks) against their plain
 PyTorch versions on the same card tensors and against the host DP or a
 numpy oracle; exact integer equality.  MCL's dense step (D3, torch ops)
 on a 512-node component against the same ops on the CPU and the numpy
@@ -448,6 +450,53 @@ def test_stage12_kernel_matches_plain_on_gpu(monkeypatch):
     bad[0] = x[0].numel() - 8
     with pytest.raises(ValueError, match="outside"):
         d1.stage12_pairs(x[0], x[1], x[2], bad, *x[4:], 11)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1 << 25, 3000])
+def test_stage12_join_kernel_matches_plain_on_gpu(cap):
+    """The fused stage-1/2 pass (stage12_join, csrc/stage12_join.cu) on
+    chip_smoke's seeded joins (STAGE12_FUSED_EDGES: self-search on and
+    off, a chunked index with and without the part table, group_keep, the
+    first shape and later ones, translated short-query windows, skip_lm,
+    seeds beside delimiters), whole and in chunks of at most 3,000 pairs:
+    the card's rows equal the plain version's on the CPU and the native
+    pass's, row for row; one launch a chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from diamond_tpu_torch import native
+    from diamond_tpu_torch.ops import stage12_device as d1
+
+    smoke = _smoke()
+    for k, (label, kw) in enumerate(smoke.STAGE12_FUSED_EDGES):
+        c = smoke.stage12_fused_case(50 + k, **kw)
+        want = smoke.stage12_native_rows(native, c)
+        d1.reset_dispatch_stats()
+        launches = d1.stage12_join.launches
+        got = smoke.stage12_fused_rows(
+            d1.Stage12Device(c["matrix32"], device="cuda"), c, cap=cap)
+        assert d1.stage12_join.launches == launches + d1.dispatch_count
+        plain = smoke.stage12_fused_rows(
+            d1.Stage12Device(c["matrix32"], device="cpu"), c, cap=cap)
+        np.testing.assert_array_equal(got, want, err_msg=label)
+        np.testing.assert_array_equal(plain, want, err_msg=label)
+        assert len(want), label
+
+
+@pytest.mark.gpu
+def test_stage12_route_memory_is_flat_across_shapes_on_gpu():
+    """A --sensitive search (16 shapes, a chunked index with partition
+    tables) with stage 1/2 on the card: after its first call, which caches
+    the blocks and the per-query tables, no Stage12Device.join_rows call
+    leaves memory allocated on the card, so the memory a call starts from
+    does not grow with the shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    calls = _smoke().stage12_route_memory("cuda")
+    assert len(calls) >= 16 and any(c["part_tbl"] for c in calls)
+    assert {c["cached"] for c in calls} == {calls[0]["cached"]}
+    assert all(c["after"] == c["before"] == calls[1]["before"]
+               for c in calls[1:])
 
 
 @pytest.mark.gpu
