@@ -14,8 +14,11 @@ A, ``--rounds`` times) on the batches of the kernel's path:
       10,000 proteins), and all of that run's launches;
   k3  the largest 3-frame batch of its blastx --long-reads run (a window of
       reads) and that window's largest one-read batch;
-  k4  the benchmark's first row (band 128) and its full-matrix row (band
-      1,024), benchmark.FULL's sizes;
+  k4  the benchmark's first row (band 128, the warp path) and its
+      full-matrix row (band 1,024, the wide-band walk), benchmark.FULL's
+      sizes, and the largest launch (by matrix cells) of chip_smoke.py's
+      blastp --swipe --mesh 1 run (32 queries against the 10,000 proteins,
+      the device DP off: K4 a shard);
   k6  the benchmark's stage-2 row, 131,072 pairs x 96 window letters;
   d1j the largest call of D1's fused pass (stage12_join: its two kernels
       and the scan between them, on its entries, no sync) in the blastp
@@ -30,9 +33,11 @@ by reading them.
 The shipped source is launched with its band classes (``rows_per_lane``,
 ``offsets_per_lane``, ``uniform_shape``) and must accept them; so is the
 older one, except that an older K1 refusing a class of no power of two
-(cudaErrorInvalidValue) gets power-of-two classes, and an older K4 the
-CTA-per-target shape (``cta_shape``); with ``--same-shape`` (a variant of
-the shipped design) it gets the shipped shapes and must accept them.  The
+(cudaErrorInvalidValue) gets power-of-two classes, and an older K4 its
+own entry point (``PARENT_SYMBOLS``: no scratch and no profile rows) and
+shapes (``parent_k4_shape``: its warp path up to 512 rows, a CTA per
+target above); with ``--same-shape`` (a variant of the shipped design) it
+gets the shipped entry point and shapes and must accept them.  The
 older source must give the shipped outputs.  Prints the card's name and
 power limit, each variant's times per round, their medians and their
 ratios to the bound (the larger of the cells the batch needs times the
@@ -58,26 +63,33 @@ SOURCES = {"k1": "banded_swipe", "k2": "full_swipe", "k3": "swipe3",
 SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
            "k2": [("full_swipe_launch", "ipppppppiiiipipp")],
            "k3": [("banded_swipe3_launch", "ipppppiiiippp")],
-           "k4": [("uniform_swipe_mask_launch", "iipppiiiiipppp")],
+           "k4": [("uniform_swipe_mask_launch", "iipppiiiiiiiiippppp")],
            "k6": [("stage2_launch", "ppppiiiipppp")],
            "d1j": [("stage12_join_eval",
                     "ppppppiippppppppipiiqpipiiiqpiiiiippp"),
                    ("stage12_join_rows", "pppiippppppp")]}
+# an older source's entry points where they differ from the shipped ones:
+# K4 before its wide-band walk (a CTA per target above 512 rows) took no
+# scratch and no profile rows
+PARENT_SYMBOLS = {"k4": [("uniform_swipe_mask_launch", "iipppiiiiipppp")]}
 ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64}
 
 
-def cta_shape(band: int):
-    """K4's CTA-per-target shape (rows per thread, threads): about 128
-    threads of up to 16 consecutive band rows, a power of two, at most 512
-    threads; the shape the uniform-band kernel took for every band before
-    its warp path."""
+def parent_k4_shape(band: int):
+    """An older K4's shape (rows per thread, threads): up to 512 rows its
+    warp path (ceil(band / 32) rows a lane), wider bands one CTA per target
+    of about 128 threads of up to 16 consecutive band rows, a power of two,
+    at most 512 threads."""
+    if band <= 512:
+        return -(-band // 32), 32
     R = 1
     while R < -(-band // 128) and R < 16:
         R *= 2
     return R, -(-band // (32 * R)) * 32
 
 
-def build_variants(kernel: str, parent: str, tmp: str):
+def build_variants(kernel: str, parent: str, tmp: str,
+                   same_shape: bool = False):
     """{"shipped": ctypes function, "parent": ctypes function}; a tuple of
     functions for a kernel of several entry points (d1j)."""
     from diamond_tpu_torch.ops import _cuda
@@ -101,7 +113,10 @@ def build_variants(kernel: str, parent: str, tmp: str):
                 print(f"  ptxas {name}:", line.strip())
         lib = ctypes.CDLL(so)
         got = []
-        for sym, args in SYMBOLS[kernel]:
+        symbols = SYMBOLS[kernel]
+        if name == "parent" and not same_shape:
+            symbols = PARENT_SYMBOLS.get(kernel, symbols)
+        for sym, args in symbols:
             fn = getattr(lib, sym)
             fn.argtypes = [ARG_TYPES[a] for a in args]
             fn.restype = ctypes.c_int
@@ -267,9 +282,13 @@ def k3_case(args, cs, torch, m):
 
 
 def k4_case(args, cs, torch, m):
+    """The benchmark's two K4 rows and the largest launch of the blastp
+    --swipe --mesh 1 run."""
     from diamond_tpu_torch.benchmark import FULL
+    from diamond_tpu_torch.cli import main as cli_main
     from diamond_tpu_torch.ops import swipe_uniform_device as sud
-    from diamond_tpu_torch.ops.swipe_uniform import uniform_shape
+    from diamond_tpu_torch.ops.swipe_uniform import (profile_rows,
+                                                     uniform_shape)
 
     go, ge = m.gap_open + m.gap_extend, m.gap_extend
     rng = np.random.default_rng(0)
@@ -280,35 +299,89 @@ def k4_case(args, cs, torch, m):
     t2 = FULL["T_full"]
     full = [(rng.integers(0, 20, t2).astype(np.int8), -(t2 - 1), len(q))
             for _ in range(FULL["n_full"])]
-    cases = []
+    batches = []
     for label, jobs in (("benchmark first row", first),
                         ("benchmark full-matrix row", full)):
-        pk, meta = sud.pack_uniform_batch(q, None, m.matrix32, jobs)
+        pk, _ = sud.pack_uniform_batch(q, None, m.matrix32, jobs)
         x = {k: torch.from_numpy(v).cuda() for k, v in pk.items()}
-        B, T = pk["t_idx"].shape
-        bd = meta["band"]
         cells = int(cs.band_cells(np.array([len(t) for t, _, _ in jobs]),
                                   np.full(len(jobs), len(q)),
                                   np.array([d0 for _, d0, _ in jobs]),
                                   np.array([d1 - d0 for _, d0, d1 in jobs]))
                     .sum())
+        batches.append((label, x, cells))
 
-        def make_call(fn, x=x, B=B, T=T, bd=bd, parent=False):
+    # the largest launch of --swipe --mesh 1: its matrix cells are the
+    # query's live rows times each target's letters (pad letter 31 apart)
+    biggest = [0, None]
+    wrapper = sud.banded_swipe_uniform_cuda
+
+    def spy(t_idx, band_mask, prof_t, go_, ge_, rows=None):
+        p_lo, p_hi = (rows or profile_rows(prof_t))[:2]
+        cells = (p_hi - p_lo) * int((t_idx != 31).sum())
+        if cells > biggest[0]:
+            biggest[:] = [cells, dict(t_idx=t_idx.clone(),
+                                      band_mask=band_mask.clone(),
+                                      prof_t=prof_t.clone())]
+        return wrapper(t_idx, band_mask, prof_t, go_, ge_, rows=rows)
+
+    spy.launches = 0  # the wrapper counts its launches on the name it finds
+    recs = cs.make_proteins(seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        db, qf = os.path.join(tmp, "db.faa"), os.path.join(tmp, "q.faa")
+        cs.write_fasta(db, recs)
+        cs.write_fasta(qf, recs[:args.swipe_queries])
+        sud.banded_swipe_uniform_cuda = spy
+        os.environ["DIAMOND_TPU_TORCH_DEVICE_DP"] = "0"
+        try:
+            rc = cli_main(["blastp", "-q", qf, "-d", db, "--swipe", "--mesh",
+                           "1", "-f", "6", "-o", os.path.join(tmp, "out")])
+        finally:
+            sud.banded_swipe_uniform_cuda = wrapper
+            os.environ.pop("DIAMOND_TPU_TORCH_DEVICE_DP")
+    if rc or biggest[1] is None:
+        raise RuntimeError("the --swipe --mesh 1 run launched no K4")
+    batches.append(("--swipe --mesh 1's largest launch", biggest[1],
+                    biggest[0]))
+
+    cases = []
+    for label, x, cells in batches:
+        B, T = x["t_idx"].shape
+        bd = x["prof_t"].shape[1] - T
+        rows = profile_rows(x["prof_t"])
+
+        def make_call(fn, x=x, B=B, T=T, bd=bd, rows=rows, parent=False):
             outs = [torch.empty(B, dtype=torch.int32, device="cuda")
                     for _ in range(3)]
-            R, th = (cta_shape if parent else uniform_shape)(bd)
+            if parent:
+                R, th = parent_k4_shape(bd)
 
-            def call():
-                check(fn(R, th, x["t_idx"].data_ptr(),
-                         x["band_mask"].data_ptr(), x["prof_t"].data_ptr(),
-                         B, T, bd, go, ge, *[o.data_ptr() for o in outs],
-                         torch.cuda.current_stream().cuda_stream))
-
+                def call():
+                    check(fn(R, th, x["t_idx"].data_ptr(),
+                             x["band_mask"].data_ptr(), x["prof_t"].data_ptr(),
+                             B, T, bd, go, ge, *[o.data_ptr() for o in outs],
+                             torch.cuda.current_stream().cuda_stream))
+                shape = (bd, R, th)
+            else:
+                def call():  # the shipped wrapper's launches, rows given
+                    k4 = sud._k4
+                    sud._k4 = lambda: fn
+                    try:
+                        sud.uniform_launch(x["t_idx"], x["band_mask"],
+                                           x["prof_t"], go, ge, rows, outs)
+                    finally:
+                        sud._k4 = k4
+                shape = (bd, *uniform_shape(bd, rows[1] - rows[0]), rows)
             call()
-            return call, outs, [(bd, R, th)]
+            return call, outs, [shape]
 
+        n_bytes = sum(v.numel() * v.element_size() for v in x.values()) \
+            + 3 * 4 * B
+        # the wide walk issues DPX (cs.K4W_OPS); the count before DPX beside
+        wide = bd > sud.MAX_WARP_BAND
         cases.append((f"{label} ({B} targets of {T}, band {bd})", cells,
-                      cs.K45_OPS, 0, make_call))
+                      cs.K4W_OPS if wide else cs.K45_OPS, n_bytes, make_call,
+                      *([cs.K45_OPS] if wide else [])))
     return cases
 
 
@@ -483,7 +556,7 @@ def main(argv=None):
     ap.add_argument("--reads", type=int, default=300,
                     help="reads of the long-reads run (k3)")
     ap.add_argument("--swipe-queries", type=int, default=32,
-                    help="queries of the blastp --swipe run (k2)")
+                    help="queries of the blastp --swipe runs (k2, k4)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -503,17 +576,19 @@ def main(argv=None):
     lanes_per_s = cs.H100_SMS * cs.INT32_LANES_PER_SM * clock_mhz * 1e6
     m = ScoreMatrix("BLOSUM62")
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build_variants(args.kernel, args.parent, tmp)
+        fns = build_variants(args.kernel, args.parent, tmp, args.same_shape)
         cases = {"k1": k1_case, "k2": k2_case, "k3": k3_case, "k4": k4_case,
                  "k6": k6_case, "d1j": d1j_case}[args.kernel](args, cs,
                                                               torch, m)
-        for label, cells, ops, n_bytes, make_call in cases:
+        for label, cells, ops, n_bytes, make_call, *pre in cases:
             bound_ms = max(cells * ops / lanes_per_s,
                            n_bytes / cs.HBM_BYTES_PER_S) * 1e3
             by = ("operations" if cells * ops / lanes_per_s
                   >= n_bytes / cs.HBM_BYTES_PER_S else "bytes")
             print(f"{label}: {cells} cells x {ops} int32 ops, {n_bytes} "
-                  f"bytes, bound {bound_ms:.5f} ms ({by})")
+                  f"bytes, bound {bound_ms:.5f} ms ({by})" + "".join(
+                      f"; at {p} ops before DPX "
+                      f"{cells * p / lanes_per_s * 1e3:.5f} ms" for p in pre))
             calls = {}
             for name, fn in fns.items():
                 kw = ({"parent": True} if name == "parent"

@@ -33,7 +33,11 @@ Phases; each one fails the run on error:
      bias, d0 < 0, targets shorter than the band, also through the direct
      DP route, and at its own interface on bands of no power of two, masks
      that are no prefix, targets of up to 1,300 letters, and both paths (a
-     warp per target for bands up to 512; a CTA per target above); the
+     warp per target for bands up to 512; the wide-band walk above, also on
+     its edges, UNIFORM_EDGES: dead rows, rows leaving and entering the
+     band, several strips, pad columns that score, ties, best 0, B = 1,
+     bands 513-8192), and on 3,000 full-matrix jobs in one call against
+     the host DP; the
      diagonal-band sweep (K5, SwipeSweep) against the full-band host DP,
      with queries above one strip, positive biases, tied bests and score-0
      rows, and on a profile whose pad cells score (and a dead row) against
@@ -100,8 +104,11 @@ Phases; each one fails the run on error:
      Python) and kernel only (the launches replayed from a CUDA graph);
      K1 with its band classes and the cells it walks against the exact
      band cells; K3 also on the largest one-read batch of the long-reads
-     run; K4 also on the benchmark's full-matrix row (band 1,024, the CTA
-     path); K2 also over the whole --swipe path, against its bound at 7
+     run; K4 on the benchmark's first row (band 128, its warp path), its
+     wide-band walk on the largest launch of the --swipe --mesh 1 run
+     (``k4w``) and on the benchmark's full-matrix row (band 1,024), both
+     against their bound at 8 int32 ops a cell (DPX counted) and at 11; K2
+     also over the whole --swipe path, against its bound at 7
      int32 ops a cell (DPX counted) and at the 11 before DPX; K6 also cold
      (the L2 flushed before each launch by writing 256 MB, and by reading
      them); D1's fused pass on the largest call of the stage-1/2 blastp
@@ -122,7 +129,11 @@ Phases; each one fails the run on error:
      sequences (host DP; >= 95 % on their source and strand);
      ``blastp --mesh 1`` (the self-search's sha through the sharded
      DeviceDP) and ``blastp --swipe --mesh 1`` with the device DP off (the
-     --swipe path's sha, K4 launched, its time a launch); ``--coordinator``
+     --swipe path's sha, K4 launched; its launches by path, warp and wide,
+     its time a launch, each launch alone by class (band, columns, rows a
+     lane, strips), and the wall split into packing, upload, K4 with the
+     sync on its outputs, the host DP of bands above 8,192 and the rest);
+     ``--coordinator``
      runs of ``blastp --mesh N`` at 2,000 queries, one rank (NCCL) and two
      ranks sharing the card (Gloo), each rank's output equal to one
      process's, and ``parallel.dist_worker`` with two ranks on the card;
@@ -171,6 +182,12 @@ K3_NOTE = ("s-fs, diagonal+s, row r-1 + (s-fs), row r+1 + (s-fs), 5 max "
 K45_OPS = 11
 K45_NOTE = ("H+s, max E, max 0, H-go (shared by E and F), F-ge, max for F, "
             "max F into H, valid select, best max, E-ge, max for E")
+# K4's wide-band walk as Hopper issues it: K2's DPX count plus the valid
+# select; K45_OPS, the count before DPX, is printed beside it
+K4W_OPS = 8
+K4W_NOTE = ("H+s with max E and max 0 (one __viaddmax_s32_relu), cur0-go, "
+            "F-ge with max for F (one), max F into H, valid select, H-go, "
+            "E-ge with max for E (one), best max")
 K6_OPS = 10
 K6_NOTE = ("matrix index, st+M, max 0, min 255, two window compares, window "
            "select, best max, letter compare, identity add")
@@ -745,6 +762,148 @@ def uniform_direct_cases(seed: int, cases=UNIFORM_DIRECT):
         out.append((band, pk["t_idx"], bm,
                     np.ascontiguousarray(pk["prof_t"][:, :T + band])))
     return out
+
+
+# K4's wide-band walk (bands 513-8192) at its own interface: (label, band,
+# columns T, targets B, profile row C of the query's first letter, query
+# length, options); the walk takes profile rows [p_lo, p_hi) in strips of
+# 512, so a query of over 512 live rows takes several
+UNIFORM_EDGES = (
+    ("holes in the mask, 2 strips", 700, 256, 5, 150, 600,
+     {"holes": True}),
+    ("dead rows at both ends and inside, rows valid for some letters", 1024,
+     256, 4, 300, 700, {"dead": True}),
+    ("p_lo below T - 1: rows leave the band at the top", 513, 512, 4, 0, 300,
+     {"holes": True}),
+    ("p_lo above T - 1, rows enter the band late, 3 strips", 3000, 512, 3,
+     2000, 1200, {}),
+    ("pad columns scoring under a positive bias", 1024, 256, 4, 200, 400,
+     {"pad_bias": True}),
+    ("tied bests across lanes and strips", 700, 128, 3, 100, 600,
+     {"ties": True}),
+    ("targets that cannot score (best 0), T of no multiple of 16", 513, 70,
+     3, 10, 200, {"zero": True}),
+    ("band 8192, 2 strips", 8192, 512, 2, 4000, 900, {"holes": True}),
+    ("band 8192, B = 1", 8192, 256, 1, 7000, 300, {}),
+    ("B = 1, one live row", 600, 64, 1, 30, 1, {}),
+    ("rows leave the band at the top in every strip, 3 strips", 1024, 1024,
+     3, 0, 1100, {"long": True}),
+    ("a match on a diagonal above the band (band row -40)", 600, 512, 3, 16,
+     400, {"above": True}),
+    ("a high cell at band row 0 as its row leaves the band", 513, 16, 1, 0,
+     20, {"exit": True}),
+    ("band of 16 mod 32, a match on a diagonal below the band (band row "
+     "band + 4)", 1040, 256, 3, 0, 1296, {"below": True}),
+)
+
+
+def uniform_edge_cases(seed: int, cases=UNIFORM_EDGES):
+    """Seeded K4 inputs for the wide-band walk at the kernel's own interface
+    (see UNIFORM_EDGES): per case a query profile at profile rows [C, C +
+    qlen) (NEG elsewhere), targets of up to T letters at a random shift in
+    their row (pad letter 31 around them) with a planted stretch of the
+    query, and masks covering each target's rows [0, w) of the band.
+    Options: ``holes`` clears every seventh band row from row 3 and a run
+    of 40; ``dead`` sets 40 query rows in the middle to NEG for every letter
+    and 30 rows to NEG for half the letters; ``pad_bias`` gives letter 31 a
+    score of +2 on the query's rows (pad columns then score); ``ties`` makes
+    a query of P with W at rows 100 and 420 (with 600 rows from profile row
+    100, one lane's rows in each of the walk's two strips), no bias, and
+    targets of W, or of C with W at two columns: equal bests in several
+    columns, rows and strips; ``zero`` makes
+    targets of pad letters and of X, which score nothing; ``long`` makes
+    targets of 0.8-1 T letters; ``above`` copies the query onto band row
+    -40, a diagonal above the band (which the function never scores), and
+    ``below`` onto band row band + 4, a diagonal below it;
+    ``exit`` is a crafted 16-column case (letter j in column j): a score of
+    100 at band row 0 in column 5, whose row leaves the band at column 6,
+    an invalid cell below it, and a score of 60 two rows below on the next
+    diagonal, so that an E kept past the band's top row would raise the
+    best.  Returns [(label,
+    band, t_idx int8 [B, T], band_mask int8 [B, band], prof_t int32 [32, T +
+    band])] as numpy arrays."""
+    from diamond_tpu_torch.ops.swipe_uniform import NEG
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m32 = ScoreMatrix("BLOSUM62").matrix32
+    rng = np.random.default_rng(seed)
+    out = []
+    for label, band, T, B, C, qlen, opt in cases:
+        q = rng.integers(0, 20, qlen).astype(np.int64)
+        bias = rng.integers(-2, 3, qlen)
+        if opt.get("ties"):
+            q[:] = 14  # P
+            q[[100, 420]] = 17  # W
+            bias[:] = 0
+        prof_t = np.full((32, T + band), NEG, np.int64)
+        prof_t[:, C:C + qlen] = (m32[q].astype(np.int64) + bias[:, None]).T
+        if opt.get("pad_bias"):
+            prof_t[31, C:C + qlen] = 2
+        if opt.get("dead"):
+            mid = C + qlen // 2
+            prof_t[:, mid:mid + 40] = NEG
+            prof_t[::2, mid + 100:mid + 130] = NEG
+        if opt.get("exit"):
+            prof_t[:, C:C + qlen] = -50
+            prof_t[5, C + 5] = 100
+            prof_t[5, C + 6] = NEG
+            prof_t[7, C + 7] = 60
+            out.append((label, band, np.arange(T, dtype=np.int8)[None, :],
+                        np.ones((1, band), np.int8), prof_t.astype(np.int32)))
+            continue
+        t_idx = np.full((B, T), 31, np.int8)
+        band_mask = np.zeros((B, band), np.int8)
+        for b in range(B):
+            tl = int(rng.integers(max(1, T // 3), T + 1))
+            if opt.get("long"):
+                tl = int(rng.integers(T * 4 // 5, T + 1))
+            if opt.get("pad_bias"):
+                tl = min(tl, T - 40)
+            t = rng.integers(0, 20, tl).astype(np.int8)
+            sh = int(rng.integers(0, T - tl + 1))
+            if opt.get("ties"):  # W, or C with W at two columns
+                t[:] = 17 if b == 0 else 4
+                t[[min(10, tl - 1), min(50, tl - 1)]] = 17
+            elif opt.get("zero") and b < 2:
+                t[:] = 31 if b == 0 else 23  # pad letters; X
+            elif opt.get("above") or opt.get("below"):
+                # the query on band row -40, or band + 4, at column j
+                j = np.arange(tl)
+                i = j + sh + (-40 if opt.get("above") else band + 4) - C
+                ok = (i >= 0) & (i < qlen)
+                t[j[ok]] = q[i[ok]]
+            else:  # a stretch of the query on a diagonal in the band
+                j = np.arange(min(tl, 60))
+                i = np.clip(j + sh + int(rng.integers(0, band // 2)) - C, 0,
+                            qlen - 1)
+                t[j] = q[i]
+            t_idx[b, sh:sh + tl] = t
+            w = band if b == 0 else int(rng.integers(band // 2, band + 1))
+            band_mask[b, :w] = 1
+            if opt.get("holes"):
+                band_mask[b, 3::7] = 0
+                h = int(rng.integers(0, band - 40))
+                band_mask[b, h:h + 40] = 0
+        out.append((label, band, t_idx, band_mask,
+                    prof_t.astype(np.int32)))
+    return out
+
+
+def uniform_many(seed: int, n: int = 3000):
+    """K4 at a batch of thousands: one query of 700 letters against ``n``
+    seeded targets of 100-500 letters, full-matrix jobs as
+    sharded_full_scores makes them (band [-(len - 1), qlen): the wide-band
+    walk, band 2048 or less).  Returns (query, bias, jobs)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 20, 700).astype(np.int8)
+    bias = rng.integers(-3, 4, 700).astype(np.int32)
+    jobs = []
+    for _ in range(n):
+        t = rng.integers(0, 20, int(rng.integers(100, 501))).astype(np.int8)
+        k = int(rng.integers(0, 640))
+        t[20:60] = q[k:k + 40]
+        jobs.append((t, -(len(t) - 1), len(q)))
+    return q, bias, jobs
 
 
 def sweep_case(seed: int, n_queries: int = 3, n_targets: int = 40):
@@ -1825,11 +1984,15 @@ def main(argv=None):
     phase("kernel parity: K4")
     k4_jobs = k4_mis = k4_host_mis = 0
     k4_bands = []
+
+    def k4_name(band):  # the warp path's errors, and the wide walk's
+        return "k4" if band <= sud.MAX_WARP_BAND else "k4w"
+
     for q, bias, jobs in uniform_batches(args.seed + 4):
         kb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda")
         pb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda",
                                 kernel=sud.banded_swipe_uniform_cuda_plain)
-        k4_mis += np_diff("k4", kb[:3], pb[:3])
+        k4_mis += np_diff(k4_name(kb[3]["band"]), kb[:3], pb[:3])
         ref = sud.host_as_uniform(banded_swipe_batch_np(
             q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)
         k4_host_mis += sum(a != b for a, b in zip(
@@ -1838,22 +2001,40 @@ def main(argv=None):
             pext._device_dp_scores(q, bias, jobs, m), ref))
         k4_bands.append(kb[3]["band"])
         k4_jobs += len(jobs)
+    # thousands of targets in one call (full-matrix jobs: the wide walk)
+    q, bias, jobs = uniform_many(args.seed + 16)
+    kb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda")
+    pb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda",
+                            kernel=sud.banded_swipe_uniform_cuda_plain)
+    k4_mis += np_diff(k4_name(kb[3]["band"]), kb[:3], pb[:3])
+    k4_host_mis += sum(a != b for a, b in zip(
+        uniform_best_effort(kb, len(jobs)),
+        sud.host_as_uniform(banded_swipe_batch_np(
+            q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)))
+    k4_bands.append(kb[3]["band"])
+    k4_jobs += len(jobs)
     # at the kernel's interface: bands of no power of two, masks that are
-    # no prefix, both paths
+    # no prefix, both paths, and the wide walk's edges
     k4_direct = []
-    for band, *arrs in uniform_direct_cases(args.seed + 12):
+    cases = [(str(c[0]), *c) for c in uniform_direct_cases(args.seed + 12)]
+    for label, band, *arrs in cases + uniform_edge_cases(args.seed + 30):
         t_idx, bm, prof = (torch.from_numpy(a).cuda() for a in arrs)
-        R, threads = sud.uniform_shape(band)
-        k4_direct.append((band, tuple(t_idx.shape), 4 * prof.numel(),
-                          "warp" if threads == 32 else "cta"))
-        k4_mis += diff("k4", sud.banded_swipe_uniform_cuda(t_idx, bm, prof,
-                                                           go, ge),
-                       sud.banded_swipe_uniform_cuda_plain(t_idx, bm, prof,
-                                                           go, ge))
+        rows = sud.profile_rows(prof) if band > sud.MAX_WARP_BAND else None
+        k4_direct.append((label, band, tuple(t_idx.shape),
+                          sud.uniform_shape(band, rows[1] - rows[0])
+                          if rows else sud.uniform_shape(band),
+                          "warp" if rows is None else "wide"))
+        plain = sud.banded_swipe_uniform_cuda_plain(t_idx, bm, prof, go, ge)
+        k4_mis += diff(k4_name(band),
+                       sud.banded_swipe_uniform_cuda(t_idx, bm, prof, go, ge),
+                       plain)
+        # the live rows from the host, as the packing hands them over
+        k4_mis += diff(k4_name(band), sud.banded_swipe_uniform_cuda(
+            t_idx, bm, prof, go, ge, rows=sud.profile_rows(arrs[2])), plain)
     print(f"K4 parity: {k4_jobs} jobs, bands {k4_bands}, and at the "
-          f"kernel's interface (band, [B, T], profile bytes, path) "
-          f"{k4_direct}; kernel vs plain mismatches {k4_mis}, kernel vs "
-          f"host DP mismatches {k4_host_mis}")
+          f"kernel's interface (case, band, [B, T], (rows a lane, strips), "
+          f"path) {k4_direct}; kernel vs plain mismatches {k4_mis}, kernel "
+          f"vs host DP mismatches {k4_host_mis}")
     if k4_mis or k4_host_mis:
         raise RuntimeError("K4 disagrees with its references")
 
@@ -2769,28 +2950,97 @@ def main(argv=None):
         phase("blastp --swipe --mesh 1 (K4 on the mesh's shard)")
         qsw = os.path.join(tmp, "q_swipe.faa")
         k4_fn = sud.banded_swipe_uniform_cuda
-        k4_in = timed(k4_fn)
+        k4_timed = timed(k4_fn)
+        k4_split = {"warp": 0, "wide": 0}
+        k4_big = {"cells": 0}
+        pack_uniform = sud.pack_uniform_batch
+        k4_letters = [0]  # the targets' letters of the call being packed
+
+        def k4_pack(query, bias, matrix32, jobs):
+            k4_letters[0] = sum(len(t) for t, _, _ in jobs)
+            return pack_uniform(query, bias, matrix32, jobs)
+
+        def k4_in(t_idx, band_mask, prof_t, go_, ge_, rows=None):
+            # the real wrapper adds its launches to this stand-in's count
+            n0 = k4_in.launches
+            out = k4_timed(t_idx, band_mask, prof_t, go_, ge_, rows=rows)
+            wide = prof_t.shape[1] - t_idx.shape[1] > sud.MAX_WARP_BAND
+            k4_split["wide" if wide else "warp"] += k4_in.launches - n0
+            # the largest launch by matrix cells: the query's live rows
+            # (given by the packing) times the targets' letters; its inputs
+            # kept by reference, with no reduction or sync in the run
+            cells = (rows[1] - rows[0]) * k4_letters[0] if rows else 0
+            if wide and cells > k4_big["cells"]:
+                k4_big.update(cells=cells, t_idx=t_idx, band_mask=band_mask,
+                              prof_t=prof_t)
+            return out
+
         k4_in.launches = 0
+        k4_c = sud._k4()
+        k4_each = []  # (band, B, T, rows a lane, strips, events) a launch
+
+        def k4_launch(R, strips, t_ptr, bm_ptr, prof_ptr, B, T, band, *rest):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            err = k4_c(R, strips, t_ptr, bm_ptr, prof_ptr, B, T, band, *rest)
+            ev[1].record()
+            k4_each.append((band, B, T, R, strips, ev))
+            return err
+
         res, data = drive("blastp-swipe-mesh1", ["blastp", "-q", qsw, "-d", db,
                                                  "--swipe", "--mesh", "1"],
                           os.path.join(tmp, "swipe_mesh1.out"), host=True,
-                          patches=[(sud, "banded_swipe_uniform_cuda", k4_in)])
+                          patches=[(sud, "banded_swipe_uniform_cuda", k4_in),
+                                   (sud, "pack_uniform_batch", k4_pack),
+                                   (sud, "_k4", lambda: k4_launch)])
+        # the launches alone (events around each C launch), by path and by
+        # class (band, columns, rows a lane, strips)
+        k4_cls = collections.defaultdict(lambda: [0, 0, 0.0])
+        for band, B, T, R, strips, ev in k4_each:
+            c = k4_cls[(band, T, R, strips)]
+            c[0] += 1
+            c[1] += B
+            c[2] += ev[0].elapsed_time(ev[1])
+        k4_only = {p: sum(v[2] for k, v in k4_cls.items()
+                          if (k[0] > sud.MAX_WARP_BAND) == (p == "wide"))
+                   for p in ("warp", "wide")}
+        top = sorted(k4_cls.items(), key=lambda kv: -kv[1][2])[:8]
+        print(f"blastp-swipe-mesh1: K4 launches alone (ms, events around each "
+              f"C launch): {json.dumps({k: round(v, 4) for k, v in k4_only.items()})}"
+              f"; the 8 classes (band, columns, rows a lane, strips) that "
+              f"take most: " + "; ".join(
+                  f"{k}: {n} launches, {b} targets, {ms:.4f} ms"
+                  for k, (n, b, ms) in top))
         k4_fn.launches += k4_in.launches
         res["launches"]["k4"] = k4_in.launches
+        res["launches"]["k4w"] = k4_split["wide"]
         report("blastp-swipe-mesh1", res, n_sw, "queries")
         k4_busy = res["device_busy_s"]
         sw_cells = sum(len(x) for _, x in recs[:n_sw]) * n_letters
-        sw_bound, sw_by = bound(sw_cells, K45_OPS, 0)
+        sw_bound, sw_by = bound(sw_cells, K4W_OPS, 0)
+        sw_pre, _ = bound(sw_cells, K45_OPS, 0)
+        ph = res["phases"]
+        split = {k: ph.get(k, 0.0) for k in ("k4.pack", "k4.upload",
+                                             "k4.kernel", "mesh.host_dp")}
+        split["rest"] = res["wall_s"] - sum(split.values())
         print(f"blastp-swipe-mesh1: K4 launches {k4_in.launches} (one per "
-              f"band and target-length class per query), {k4_busy:.4f} s of "
-              f"card time, {k4_busy * 1e3 / max(k4_in.launches, 1):.4f} ms a "
+              f"band and target-length class per query; by path {k4_split}),"
+              f" {k4_busy:.4f} s of card time, "
+              f"{k4_busy * 1e3 / max(k4_in.launches, 1):.4f} ms a "
               f"launch on {kind} ({name_power}); the path's {sw_cells} "
-              f"matrix cells at {K45_OPS} int32 ops a cell bound it at "
-              f"{sw_bound:.4f} ms ({sw_by}; the padded classes walk more); "
-              f"sha {res['sha']}")
-        if res["sha"] != paths["k2"]["sha"] or not k4_in.launches:
+              f"matrix cells at {K4W_OPS} int32 ops a cell bound it at "
+              f"{sw_bound:.4f} ms ({sw_by}; {sw_pre:.4f} ms at {K45_OPS}, "
+              f"before DPX; the padded classes walk more); "
+              f"wall {res['wall_s']:.4f} s split (s): "
+              f"{json.dumps({k: round(v, 4) for k, v in split.items()})} "
+              f"(packing, upload, K4 with the sync on its outputs, the host "
+              f"DP of bands above {sud.MAX_UNIFORM_BAND}, the rest); its "
+              f"largest launch: {k4_big['cells']} matrix cells; sha "
+              f"{res['sha']}")
+        if res["sha"] != paths["k2"]["sha"] or not k4_split["wide"]:
             raise RuntimeError("blastp --swipe --mesh 1: output differs from "
-                               "--swipe's, or K4 never launched")
+                               "--swipe's, or K4's wide-band walk never "
+                               "launched")
         paths["swipe-mesh1"] = res
 
         phase("several processes on the one card (torch.distributed)")
@@ -3086,8 +3336,9 @@ def main(argv=None):
                            np.array([d1 - d0 for _, d0, d1 in jobs4])).sum())
     n_bytes = sum(v.nbytes for v in pk4.values()) + 3 * 4 * len(jobs4)
     print(f"K4 batch: {len(jobs4)} targets of {BENCH['T']} x query of "
-          f"{len(q4)}, band {band4}, shape {sud.uniform_shape(band4)} (the "
-          f"benchmark's first row)")
+          f"{len(q4)}, band {band4}, (rows a lane, strips) "
+          f"{sud.uniform_shape(band4)} (the benchmark's first row: the warp "
+          f"path)")
     rows.append(("k4", time_kernel(
         "k4", lambda: sud.banded_swipe_uniform_cuda(
             x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
@@ -3095,27 +3346,70 @@ def main(argv=None):
             x4["t_idx"], x4["band_mask"], x4["prof_t"], go, ge),
         cells, K45_OPS, K45_NOTE, n_bytes, 20)))
 
+    def k4_alone(x):
+        """The wrapper's launches on x with the profile's rows read back
+        once outside (as the main path's packing gives them on the host),
+        so that a CUDA graph holds the launches alone."""
+        rows = sud.profile_rows(x["prof_t"])
+        outs = [torch.empty(x["t_idx"].shape[0], dtype=torch.int32,
+                            device="cuda") for _ in range(3)]
+        return rows, lambda: sud.uniform_launch(
+            x["t_idx"], x["band_mask"], x["prof_t"], go, ge, rows, outs)
+
+    # K4's wide-band walk on the largest launch of the --swipe --mesh 1 run
+    x4w = {k: k4_big[k] for k in ("t_idx", "band_mask", "prof_t")}
+    rows4w, alone4w = k4_alone(x4w)
+    B4w, T4w = x4w["t_idx"].shape
+    band4w = x4w["prof_t"].shape[1] - T4w
+    R4w, strips4w = sud.uniform_shape(band4w, rows4w[1] - rows4w[0])
+    walked4w = B4w * strips4w * 32 * R4w * T4w
+    print(f"K4 wide batch: {B4w} targets of up to {T4w} letters x query of "
+          f"{rows4w[1] - rows4w[0]} live profile rows, band {band4w}, "
+          f"(rows a lane, strips) ({R4w}, {strips4w}): {k4_big['cells']} "
+          f"matrix cells; at most {walked4w} cells walked (strip rows x "
+          f"columns; the CTA path walked {B4w * band4w * T4w}); the largest "
+          f"launch of --swipe --mesh 1")
+    rows.append(("k4w", time_kernel(
+        "k4w", lambda: sud.banded_swipe_uniform_cuda(
+            x4w["t_idx"], x4w["band_mask"], x4w["prof_t"], go, ge,
+            rows=rows4w),
+        lambda: sud.banded_swipe_uniform_cuda_plain(
+            x4w["t_idx"], x4w["band_mask"], x4w["prof_t"], go, ge),
+        k4_big["cells"], K4W_OPS, K4W_NOTE,
+        sum(v.numel() * v.element_size() for v in x4w.values()) + 12 * B4w,
+        10, alone=alone4w)))
+    k4w_pre, _ = bound(k4_big["cells"], K45_OPS, 0)
+    print(f"k4w before DPX ({K45_OPS} int32 ops/cell: {K45_NOTE}): bound "
+          f"{k4w_pre:.4f} ms, kernel only {rows[-1][1][4] / k4w_pre:.2f}x")
+
     # K4 on the benchmark's full-matrix row (64 targets of 256 x the query,
-    # band 1,024: the CTA path)
+    # band 1,024: the wide-band walk)
     t4 = BENCH["T_full"]
     jobs4f = [(rng4.integers(0, 20, t4).astype(np.int8), -(t4 - 1), len(q4))
               for _ in range(BENCH["n_full"])]
     pk4f, meta4f = sud.pack_uniform_batch(q4, None, m.matrix32, jobs4f)
     x4f = {k: torch.from_numpy(v).cuda() for k, v in pk4f.items()}
+    rows4f, alone4f = k4_alone(x4f)
     print(f"K4 batch: {len(jobs4f)} targets of {t4} x query of {len(q4)}, "
-          f"band {meta4f['band']}, shape {sud.uniform_shape(meta4f['band'])} "
-          f"(the benchmark's full-matrix row)")
+          f"band {meta4f['band']}, (rows a lane, strips) "
+          f"{sud.uniform_shape(meta4f['band'], rows4f[1] - rows4f[0])} (the "
+          f"benchmark's full-matrix row)")
     k4_full = time_kernel(
-        "k4", lambda: sud.banded_swipe_uniform_cuda(
-            x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge),
+        "k4w", lambda: sud.banded_swipe_uniform_cuda(
+            x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge,
+            rows=meta4f["rows"]),
         lambda: sud.banded_swipe_uniform_cuda_plain(
             x4f["t_idx"], x4f["band_mask"], x4f["prof_t"], go, ge),
-        len(q4) * t4 * len(jobs4f), K45_OPS, K45_NOTE,
-        sum(v.nbytes for v in pk4f.values()) + 3 * 4 * len(jobs4f), 20)
+        len(q4) * t4 * len(jobs4f), K4W_OPS, K4W_NOTE,
+        sum(v.nbytes for v in pk4f.values()) + 3 * 4 * len(jobs4f), 20,
+        alone=alone4f)
+    k4f_pre, _ = bound(len(q4) * t4 * len(jobs4f), K45_OPS, 0)
     print(f"K4 full-matrix row: kernel {k4_full[0]:.4f} ms per call, "
           f"{k4_full[4]:.4f} ms kernel only, bound "
-          f"{k4_full[2]:.5f} ms ({k4_full[3]}), {k4_full[0] / k4_full[2]:.1f}x; "
-          f"{kind}, {name_power}")
+          f"{k4_full[2]:.5f} ms ({k4_full[3]}, {K4W_OPS} ops/cell), "
+          f"{k4_full[4] / k4_full[2]:.1f}x kernel only ({k4f_pre:.5f} ms "
+          f"and {k4_full[4] / k4f_pre:.1f}x at {K45_OPS}, before DPX): 64 "
+          f"serial chains of 256 columns; {kind}, {name_power}")
 
     # K5 on the largest launch of the SwipeSweep run
     launches5 = [(len(q), L) for q, _ in queries5
@@ -3284,6 +3578,12 @@ def main(argv=None):
                "diamond_tpu_torch/csrc/uniform_swipe.cu",
                "diamond_tpu/ops/swipe_pallas.py:114 (banded_swipe_pallas)",
                "bench"),
+        # the same wrapper's wide-band walk (uniform_rows_kernel), on the
+        # path that launches it most
+        "k4w": ("banded_swipe_uniform_cuda, bands 513-8192",
+                "diamond_tpu_torch/csrc/uniform_swipe.cu",
+                "diamond_tpu/ops/swipe_pallas.py:114 (banded_swipe_pallas)",
+                "swipe-mesh1"),
         "k5": ("swipe_sweep", "diamond_tpu_torch/csrc/swipe_sweep.cu",
                "diamond_tpu/ops/swipe_device.py:582 (banded_swipe_pallas_sweep)",
                "k5"),

@@ -87,9 +87,11 @@ def run_benchmark(device=None, small: bool = False):
     q = rng.integers(0, 20, qlen).astype(np.int8)
     jobs = [(rng.integers(0, 20, T).astype(np.int8), -band // 2, band // 2)
             for _ in range(B)]
-    x = on_dev(sud.pack_uniform_batch(q, None, m.matrix32, jobs)[0])
+    pk, meta = sud.pack_uniform_batch(q, None, m.matrix32, jobs)
+    x = on_dev(pk)
     dt = _time(lambda: sud.banded_swipe_uniform_cuda(
-        x["t_idx"], x["band_mask"], x["prof_t"], go, ge), z["n_iter"])
+        x["t_idx"], x["band_mask"], x["prof_t"], go, ge, rows=meta["rows"]),
+        z["n_iter"])
     rows.append(("banded SWIPE (cuda)", cells_of(jobs), dt))
 
     # banded SWIPE, the one-hot tensor-op path
@@ -104,9 +106,11 @@ def run_benchmark(device=None, small: bool = False):
     T2 = z["T_full"]
     jobs_f = [(rng.integers(0, 20, T2).astype(np.int8), -(T2 - 1), qlen)
               for _ in range(z["n_full"])]
-    x3 = on_dev(sud.pack_uniform_batch(q, None, m.matrix32, jobs_f)[0])
+    pk3, meta3 = sud.pack_uniform_batch(q, None, m.matrix32, jobs_f)
+    x3 = on_dev(pk3)
     dt = _time(lambda: sud.banded_swipe_uniform_cuda(
-        x3["t_idx"], x3["band_mask"], x3["prof_t"], go, ge), z["n_iter"])
+        x3["t_idx"], x3["band_mask"], x3["prof_t"], go, ge,
+        rows=meta3["rows"]), z["n_iter"])
     rows.append(("full-matrix SWIPE (cuda)", cells_of(jobs_f), dt))
 
     # 3-frame (frameshift) banded SWIPE — the blastx -F kernel

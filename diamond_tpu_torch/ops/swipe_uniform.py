@@ -23,7 +23,8 @@ from diamond_tpu_torch.utils.device import resolve_device
 
 NEG = -(2 ** 20)          # large negative, safe from int32 overflow in adds
 MAX_UNIFORM_BAND = 8192   # widest band the uniform-band kernel takes
-MAX_WARP_BAND = 512       # widest band of its one-warp-per-target path
+MAX_WARP_BAND = 512       # widest band its warp holds in registers
+STRIP_ROWS = 512          # most profile rows a warp walks at once (wider bands)
 
 
 def pad_pow2(x: int, lo: int = 16) -> int:
@@ -40,17 +41,46 @@ def pad_band(x: int) -> int:
     return (x + 1023) // 1024 * 1024
 
 
-def uniform_shape(band: int):
-    """(rows per thread, threads) of the uniform-band kernel for ``band``:
-    up to MAX_WARP_BAND rows one warp per target (32 threads of ceil(band /
-    32) rows each); wider bands one CTA per target of about 128 threads of
-    8 or 16 consecutive band rows each, at most 512 threads (8192 rows)."""
+def uniform_shape(band: int, rows=None):
+    """(rows per lane, strips) of the uniform-band kernel for ``band``: up to
+    MAX_WARP_BAND rows one warp holds the band, ceil(band / 32) band rows a
+    lane, in one strip (``rows`` unused); wider bands one warp walks the
+    profile's ``rows`` live rows (``profile_rows``, required there) in
+    strips of at most STRIP_ROWS, the rows spread evenly over the strips and
+    the warp's 32 lanes."""
     if not 1 <= band <= MAX_UNIFORM_BAND:
         raise ValueError(f"uniform-band kernel takes bands 1..{MAX_UNIFORM_BAND}")
     if band <= MAX_WARP_BAND:
-        return -(-band // 32), 32
-    R = min(pad_pow2(-(-band // 128), 1), 16)
-    return R, -(-band // (32 * R)) * 32
+        return -(-band // 32), 1
+    if rows is None:
+        raise ValueError(f"band {band} takes the wide walk, whose shape needs "
+                         f"the profile's live rows")
+    strips = max(1, -(-rows // STRIP_ROWS))
+    return max(1, -(-rows // (32 * strips))), strips
+
+
+def profile_rows(prof_t):
+    """What the wide-band walk needs to know of a transposed profile
+    (int32 [32, T + band], a numpy array or a tensor, whose reduction then
+    runs on its device and is read back once) as Python ints: (p_lo, p_hi,
+    pos, all_valid).  [p_lo, p_hi) are the first and one past the last
+    profile row in which some letter scores (> NEG / 2), (0, 0) when none
+    does; bit a of ``pos`` is set where letter a scores > 0 in some row of
+    that range (a row outside it scores > 0 nowhere); ``all_valid`` is 1
+    where every letter scores > NEG / 2 in every row of it."""
+    live = prof_t > NEG // 2
+    parts = (live.any(0), live.all(0), (prof_t > 0).any(1))
+    if isinstance(prof_t, torch.Tensor):
+        back = torch.cat(parts).cpu().numpy()
+    else:
+        back = np.concatenate(parts)
+    n = prof_t.shape[1]
+    rows = np.flatnonzero(back[:n])
+    if not len(rows):
+        return 0, 0, 0, 1
+    p_lo, p_hi = int(rows[0]), int(rows[-1]) + 1
+    pos = sum(1 << int(a) for a in np.flatnonzero(back[2 * n:]))
+    return p_lo, p_hi, pos, int(back[n + p_lo:n + p_hi].all())
 
 
 def make_profile(query: np.ndarray, bias, matrix32: np.ndarray, qlen_pad: int):

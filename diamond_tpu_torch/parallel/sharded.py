@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from diamond_tpu_torch.utils.device import resolve_device
+from diamond_tpu_torch.utils.log import padd, perf_counter
 
 
 class Mesh(list):
@@ -98,6 +99,7 @@ def sharded_swipe_topk(mesh: Mesh, targets_1h, band_mask, profile_pad,
     the uniform-band kernel (K4) over its B / n targets and keeps its top
     min(k, shard); the candidates are gathered in shard order and the global
     top-k taken, ties to the lower position, as jax.lax.top_k breaks them."""
+    from diamond_tpu_torch.ops.swipe_uniform import profile_rows
     from diamond_tpu_torch.ops.swipe_uniform_device import \
         banded_swipe_uniform_cuda
 
@@ -117,6 +119,7 @@ def sharded_swipe_topk(mesh: Mesh, targets_1h, band_mask, profile_pad,
     if prof_t.shape[1] != T + band or mask.shape[1] != band:
         raise ValueError("profile_pad must be [T + band, 32] and band_mask "
                          "[B, band]")
+    rows = profile_rows(prof_t)  # on the host: no read-back a shard
     local = {}
     for s in mesh.local():
         dev = mesh[s]
@@ -125,7 +128,7 @@ def sharded_swipe_topk(mesh: Mesh, targets_1h, band_mask, profile_pad,
             torch.from_numpy(t_idx[lo:lo + shard]).to(dev),
             torch.from_numpy(mask[lo:lo + shard]).to(dev),
             torch.from_numpy(prof_t).to(dev), gap_open_total,
-            gap_extend)[0].cpu().numpy().astype(np.int64)
+            gap_extend, rows=rows)[0].cpu().numpy().astype(np.int64)
         top = _top_k(best, kk)
         local[s] = np.stack([best[top], top + lo]).astype(np.int32)
     cand = np.concatenate(gather_shards(mesh, local, [kk] * n_dev, 2),
@@ -153,7 +156,8 @@ def sharded_full_scores(mesh: Mesh, query, bias, tblock, matrix32,
     ``ops/swipe_uniform_device.uniform_scores``) on its device, one launch
     per (padded band, padded target length) class so that a long target
     does not widen every short one's walk; jobs whose band exceeds
-    MAX_UNIFORM_BAND take the host DP, as everywhere in the port."""
+    MAX_UNIFORM_BAND take the host DP, as everywhere in the port (phase
+    timer ``mesh.host_dp``)."""
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
     from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND,
                                                      pad_band, pad_pow2)
@@ -181,9 +185,11 @@ def sharded_full_scores(mesh: Mesh, query, bias, tblock, matrix32,
         for (band, _), idx in sorted(classes.items()):
             sub = [mine[k] for k in idx]
             if band > MAX_UNIFORM_BAND:
+                t0 = perf_counter()
                 res = banded_swipe_batch_np(query, bias, sub, matrix32,
                                             gap_open, gap_extend)
                 best = [int(np.asarray(r).flat[0]) for r in res]
+                padd("mesh.host_dp", t0)
             else:
                 best = uniform_scores(query, bias, matrix32, sub, go, ge,
                                       mesh[s])[0]

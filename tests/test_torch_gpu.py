@@ -157,7 +157,7 @@ def test_full_swipe_kernel_matches_plain_and_host_on_gpu():
 
 
 @pytest.mark.gpu
-def test_uniform_swipe_kernel_matches_plain_and_host_on_gpu():
+def test_uniform_swipe_kernel_matches_plain_and_host_on_gpu(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from diamond_tpu_torch.ops import swipe_uniform_device as sud
@@ -182,19 +182,52 @@ def test_uniform_swipe_kernel_matches_plain_and_host_on_gpu():
         assert got == ref
         bands.append(kb[3]["band"])
     assert max(bands) == 8192
-    # at the kernel's interface: the warp path (bands <= 512) and the CTA
-    # path, bands of no power of two, masks that are no prefix
+    # at the kernel's interface: the warp path (bands <= 512) and the
+    # wide-band walk, bands of no power of two, masks that are no prefix,
+    # and the walk's edges (UNIFORM_EDGES: dead rows, rows leaving the band,
+    # several strips, pad columns that score, ties, best 0, B = 1)
     warp_path = set()
-    for band, *arrs in _smoke().uniform_direct_cases(seed=20):
+    cases = [(str(c[0]), *c) for c in _smoke().uniform_direct_cases(seed=20)]
+    cases += _smoke().uniform_edge_cases(seed=30)
+    for label, band, *arrs in cases:
         t_idx, bm, prof = (torch.from_numpy(a).cuda() for a in arrs)
         got = sud.banded_swipe_uniform_cuda(t_idx, bm, prof, go, ge)
         want = sud.banded_swipe_uniform_cuda_plain(t_idx, bm, prof, go, ge)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), band
-        warp_path.add(sud.uniform_shape(band)[1] == 32)
+        # the live rows from the host, as the packing hands them over
+        given = sud.banded_swipe_uniform_cuda(
+            t_idx, bm, prof, go, ge, rows=sud.profile_rows(arrs[2]))
+        for g, h, w in zip(got, given, want):
+            assert torch.equal(g, w) and torch.equal(h, w), label
+        warp_path.add(band <= sud.MAX_WARP_BAND)
         bands.append(band)
     assert warp_path == {True, False}
-    assert {16, 128, 500, 512, 513, 1024} <= set(bands)
+    assert {16, 128, 500, 512, 513, 700, 1024, 1040, 3000, 8192} <= set(bands)
+    # strip carries past SCRATCH_BYTES: one launch a target
+    for label, band, *arrs in _smoke().uniform_edge_cases(seed=30):
+        if "strips" not in label:
+            continue
+        t_idx, bm, prof = (torch.from_numpy(a).cuda() for a in arrs)
+        want = sud.banded_swipe_uniform_cuda(t_idx, bm, prof, go, ge)
+        monkeypatch.setattr(sud, "SCRATCH_BYTES", 1)
+        launches = sud.banded_swipe_uniform_cuda.launches
+        got = sud.banded_swipe_uniform_cuda(t_idx, bm, prof, go, ge)
+        assert sud.banded_swipe_uniform_cuda.launches - launches == len(t_idx)
+        monkeypatch.undo()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+    # thousands of targets in one call, full-matrix jobs, against the plain
+    # version and the host DP
+    q, bias, jobs = _smoke().uniform_many(seed=40)
+    kb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda")
+    pb = sud.uniform_scores(q, bias, m.matrix32, jobs, go, ge, "cuda",
+                            kernel=sud.banded_swipe_uniform_cuda_plain)
+    for g, w in zip(kb[:3], pb[:3]):
+        np.testing.assert_array_equal(g, w)
+    assert kb[3]["band"] > sud.MAX_WARP_BAND
+    ref = sud.host_as_uniform(banded_swipe_batch_np(
+        q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)
+    assert [(int(kb[0][k]), max(int(kb[1][k]) - kb[3]["shifts"][k], 0),
+             int(kb[2][k])) for k in range(len(jobs))] == ref
 
 
 @pytest.mark.gpu
