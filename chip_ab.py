@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the shipped source of a kernel against an older one on one CUDA card.
 
-    python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j --parent OLD.cu [--same-shape]
-                       [--rounds N] [--queries N] [--reads N]
+    python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j|d4 --parent OLD.cu
+                       [--same-shape] [--rounds N] [--queries N] [--reads N]
                        [--swipe-queries N] [--seed S]
 
 Builds the kernel's shipped source (``diamond_tpu_torch/csrc``) and the
@@ -22,7 +22,10 @@ A, ``--rounds`` times) on the batches of the kernel's path:
   k6  the benchmark's stage-2 row, 131,072 pairs x 96 window letters;
   d1j the largest call of D1's fused pass (stage12_join: its two kernels
       and the scan between them, on its entries, no sync) in the blastp
-      self-search with stage 1/2 on the card.
+      self-search with stage 1/2 on the card;
+  d4  the largest traceback call of the blastp self-search (its fill
+      launches, the scan and the ops' compaction on preallocated buffers,
+      no sync).
 
 Each round times each variant three ways: 10 calls launched from Python
 between two events (the per-call time of chip_smoke.py's rows), 10 calls
@@ -58,7 +61,8 @@ import tempfile
 import numpy as np
 
 SOURCES = {"k1": "banded_swipe", "k2": "full_swipe", "k3": "swipe3",
-           "k4": "uniform_swipe", "k6": "stage2", "d1j": "stage12_join"}
+           "k4": "uniform_swipe", "k6": "stage2", "d1j": "stage12_join",
+           "d4": "banded_traceback"}
 # each kernel's C entry points and their argument types (launcher letters)
 SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
            "k2": [("full_swipe_launch", "ipppppppiiiipipp")],
@@ -67,7 +71,9 @@ SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
            "k6": [("stage2_launch", "ppppiiiipppp")],
            "d1j": [("stage12_join_eval",
                     "ppppppiippppppppipiiqpipiiiqpiiiiippp"),
-                   ("stage12_join_rows", "pppiippppppp")]}
+                   ("stage12_join_rows", "pppiippppppp")],
+           "d4": [("tb_fill_launch", "ipppppipiipppppppp"),
+                  ("tb_compact_launch", "ipppppppp")]}
 # an older source's entry points where they differ from the shipped ones:
 # K4 before its wide-band walk (a CTA per target above 512 rows) took no
 # scratch and no profile rows
@@ -91,7 +97,7 @@ def parent_k4_shape(band: int):
 def build_variants(kernel: str, parent: str, tmp: str,
                    same_shape: bool = False):
     """{"shipped": ctypes function, "parent": ctypes function}; a tuple of
-    functions for a kernel of several entry points (d1j)."""
+    functions for a kernel of several entry points (d1j, d4)."""
     from diamond_tpu_torch.ops import _cuda
 
     src = os.path.join(_cuda.CSRC_DIR, SOURCES[kernel] + ".cu")
@@ -543,6 +549,76 @@ def d1j_case(args, cs, torch, m):
              cs.d1j_bytes(call, len(rows)), make_call)]
 
 
+def d4_case(args, cs, torch, m):
+    """The largest traceback call (D4) of the blastp self-search."""
+    from diamond_tpu_torch.cli import main as cli_main
+    from diamond_tpu_torch.ops import traceback_device as tbd
+
+    calls = []
+    tb_multi_device = tbd.tb_multi_device
+
+    def spy(*a):
+        calls.append(a)
+        return tb_multi_device(*a)
+
+    recs = cs.make_proteins(seed=args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        db, qf = os.path.join(tmp, "db.faa"), os.path.join(tmp, "q.faa")
+        cs.write_fasta(db, recs)
+        cs.write_fasta(qf, recs[:args.queries])
+        tbd.tb_multi_device = spy
+        try:
+            rc = cli_main(["blastp", "-q", qf, "-d", db, "-f", "6", "-o",
+                           os.path.join(tmp, "out")])
+        finally:
+            tbd.tb_multi_device = tb_multi_device
+    if rc or not calls:
+        raise RuntimeError("the blastp run made no D4 call")
+    a = max(calls, key=lambda c: len(c[7]))
+    jobs = tbd.job_table(*(a[k] for k in (2, 3, 4, 6, 7, 8, 9)))
+    if a[1] is None:
+        jobs[:, 2] = 0
+    bias = np.zeros(1, np.int32) if a[1] is None else a[1]
+    x = [torch.from_numpy(np.ascontiguousarray(v, dtype=dt)).cuda()
+         for v, dt in ((a[0], np.int8), (bias, np.int32), (a[5], np.int8),
+                       (jobs, np.int64))]
+    m32 = torch.from_numpy(m.matrix32.astype(np.int32)).cuda()
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    plan = tbd.tb_plan(jobs)
+    ref = tbd.banded_traceback_multi(*x, m32, go, ge, plan=plan)
+    n_ops = ref[1][:, 10].cpu().numpy()
+    cells, steps = cs.tb_work(jobs[:, 4], jobs[:, 1], jobs[:, 5], jobs[:, 6],
+                              n_ops)
+    ops = cells * cs.D4_OPS + steps * cs.D4_WALK_OPS
+    q_used = np.unique(jobs[:, :2], axis=0)
+    n_bytes = (cells + 5 * steps + int(jobs[:, 4].sum())
+               + 5 * int(q_used[:, 1].sum()) + 8 * jobs.size
+               + 8 * 15 * len(jobs) + 4 * 32 * 32)
+    bufs = tbd.tb_buffers(plan, "cuda")
+    k_d4 = tbd._d4
+
+    def make_call(fns, parent=False):
+        outs = [torch.empty_like(t) for t in ref]
+
+        def call():
+            tbd._d4 = lambda: fns
+            try:
+                tbd.tb_launch(*x, m32, go, ge, plan, bufs, outs[0], outs[1])
+                n = outs[1][:, 10]
+                torch.sub(torch.cumsum(n, 0), n, out=outs[2])
+                tbd.tb_compact(outs[1], bufs, outs[2], outs[3], outs[4])
+            finally:
+                tbd._d4 = k_d4
+
+        call()
+        return call, outs, [(32 * R, c) for R, _, c in plan.launches]
+
+    print(f"d4 call: {len(jobs)} jobs of {len(calls)} calls, {cells} exact "
+          f"band cells, {steps} walk ops, {len(plan.slices)} plane slices")
+    return [(f"blastp's largest traceback call ({len(jobs)} jobs)", cells,
+             ops / cells, n_bytes, make_call)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
@@ -578,8 +654,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(args.kernel, args.parent, tmp, args.same_shape)
         cases = {"k1": k1_case, "k2": k2_case, "k3": k3_case, "k4": k4_case,
-                 "k6": k6_case, "d1j": d1j_case}[args.kernel](args, cs,
-                                                              torch, m)
+                 "k6": k6_case, "d1j": d1j_case,
+                 "d4": d4_case}[args.kernel](args, cs, torch, m)
         for label, cells, ops, n_bytes, make_call, *pre in cases:
             bound_ms = max(cells * ops / lanes_per_s,
                            n_bytes / cs.HBM_BYTES_PER_S) * 1e3
@@ -597,7 +673,8 @@ def main(argv=None):
                 torch.cuda.synchronize()
                 calls[name] = (call, [o.clone() for o in outs])
                 print(f"  {name}: launches {shape}")
-            want = calls["shipped"][1]
+            first = next(iter(calls))  # the shipped source
+            want = calls[first][1]
             ways = {"per call": lambda c: cs.cuda_ms(c, 10),
                     "kernel only": lambda c: cs.graph_ms(c, 10)}
             if args.kernel == "k6":
@@ -617,10 +694,10 @@ def main(argv=None):
                           f"{' '.join(f'{t:.4f}' for t in times[name][w])} "
                           f"ms; median {med:.4f} ms, {med / bound_ms:.2f}x "
                           f"the bound")
-                print(f"  {name}: mismatches vs shipped {mis}; {name_power}")
+                print(f"  {name}: mismatches vs {first} {mis}; "
+                      f"{name_power}")
                 if mis:
-                    raise RuntimeError(f"{name} disagrees with the shipped "
-                                       f"source")
+                    raise RuntimeError(f"{name} disagrees with {first}")
     return 0
 
 

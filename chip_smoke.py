@@ -14,7 +14,8 @@ Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
      full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu,
-     stage12.cu, stage12_join.cu; one nvcc per source, all at once, for
+     stage12.cu, stage12_join.cu, banded_traceback.cu; one nvcc per
+     source, all at once, for
      sm_90a; registers
      and spills from ptxas) and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
@@ -54,14 +55,26 @@ Phases; each one fails the run on error:
      index with and without the part table, group_keep, the first shape
      and later ones, translated short-query windows, skip_lm, seeds beside
      delimiters), whole and in chunks of 3,000 pairs, against its plain
-     version and the native host pass, row for row;
+     version and the native host pass, row for row; the traceback
+     refill (D4) on seeded jobs (tb_jobs: every band class edge, bias on
+     and off, gap runs, one beside the first target column and one beside
+     the first query row, d0 < 0, targets cut short, score-0 jobs, jobs
+     starting below diagonal -(t_len - 1)), whole and in 64 KB plane
+     slices, against its plain version, its planes read
+     from its scratch against the plain fill's, and through
+     tb_multi_device against the native host call and, for the jobs
+     starting low, the numpy oracle;
   4. blastp: a default ``blastp -f 6`` self-search of a seeded synthetic
      protein set the size of nr_10k (10,000 sequences, ~4 M letters), on
      the card, on the host, and a third time with stage 1/2 on the card
      (DIAMOND_TPU_TORCH_STAGE12=1: the fused pass stage12_join must
      launch, the pair kernel not, and the output equal the other two);
      ``seed.stage12`` and its spans (upload, card, rows back) printed per
-     route;
+     route; the traceback round: D4 must launch on the card route and
+     refill every job within its band cap there (ext.tb_multi,
+     ext.tb_card and its jobs and cells, K1's ext.device_dp, the host
+     route's ext.score_multi, failed walks on both routes, D4's jobs
+     starting below -(t_len - 1), peak card memory);
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
      (~1 indel per kb) against it; >= 95 % must hit their source protein;
   6. blastx: default six-frame search of 500 seeded 300-1500 nt reads
@@ -114,7 +127,11 @@ Phases; each one fails the run on error:
      them); D1's fused pass on the largest call of the stage-1/2 blastp
      run (kernel only: its two kernels and the scan between them; the
      bound from the operations the function needs, D1J_OPS), the pair
-     kernel, which no search path launches, on that call's pairs; D3 on
+     kernel, which no search path launches, on that call's pairs; D4 on
+     blastp's largest traceback call (per call, kernel only: its
+     launches, the scan and the compaction; against its plain version
+     and the native host call; the bound from D4_OPS a cell and
+     D4_WALK_OPS a walk op, the planes written and read); D3 on
      the MCL run's matrices against the same torch ops on the CPU and the
      numpy loop (equal cluster assignments), timed on the largest against
      2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
@@ -499,6 +516,221 @@ def dp_requests(seed: int, n_queries: int):
         jobs.append((t[:5], -50, -40))     # no cell in the query
         reqs.append((q, bias, jobs))
     return reqs
+
+
+TB_BANDS = (1, 31, 32, 33, 64, 97, 128, 129, 200, 257, 300, 385, 449, 512)
+
+
+def _mutate(rng, seg, sub: float, indel: float):
+    """seg with substitutions and short insertions and deletions."""
+    out = []
+    for a in seg:
+        x = rng.random()
+        if x < indel / 2:
+            continue                                   # a deletion
+        out.append(a if rng.random() >= sub else rng.integers(0, 20))
+        if x > 1 - indel / 2:
+            out.extend(rng.integers(0, 20, int(rng.integers(1, 6))))
+    return np.array(out, dtype=np.int8)
+
+
+def tb_jobs(seed: int, n_queries: int = 6, bands=TB_BANDS,
+            max_len: int = 400, low_start: bool = True):
+    """Seeded traceback jobs as ``tb_multi_results`` takes them (a dict of
+    its flat arrays: q_base, bias_base, q_off, q_len, use_bias, t_cat,
+    t_off, t_len, d_begins, bands).  Each query's targets hold mutated
+    copies of a query segment (substitutions and indels, so the walk takes
+    gap runs), on a diagonal of the band; bias on every other query; every
+    band of ``bands`` over the queries; d0 < 0; a band that covers the
+    whole target; targets cut short (1-5 letters); jobs with no cell in the
+    query (score 0); letters with the seed-mask bit (-128) set; two jobs
+    whose best alignment starts with a gap run beside the first target
+    column and the first query row (a strong match there, its bias +10);
+    with ``low_start`` also jobs whose band starts below diagonal
+    -(t_len - 1), marked in ``low``."""
+    rng = np.random.default_rng(seed)
+    qs, jobs = [], []
+    for qi in range(n_queries):
+        ql = int(rng.integers(20, max_len))
+        q = rng.integers(0, 20, ql).astype(np.int8)
+        q[rng.random(ql) < 0.03] |= -128
+        qs.append(q)
+        for k in range(len(bands) // 2 + 2):
+            band = int(bands[(k + qi * (len(bands) // 2)) % len(bands)])
+            a = int(rng.integers(0, ql))
+            seg = _mutate(rng, q[a:a + int(rng.integers(5, 200))],
+                          0.25, 0.08 if k % 2 else 0.0)
+            pre = rng.integers(0, 20, int(rng.integers(0, 60))).astype(np.int8)
+            post = rng.integers(0, 20, int(rng.integers(0, 60))).astype(np.int8)
+            t = np.concatenate([pre, seg, post]).astype(np.int8)
+            if not len(t):
+                t = rng.integers(0, 20, 3).astype(np.int8)
+            t[rng.random(len(t)) < 0.02] |= -128
+            diag = a - len(pre)
+            d0 = diag - int(rng.integers(0, band))
+            if not low_start or k % 4:
+                d0 = max(d0, -(len(t) - 1))
+            jobs.append((qi, t, d0, band))
+        t = q[:int(rng.integers(1, 6))].copy()
+        jobs.append((qi, t, -2, 33))                     # a target cut short
+        t = rng.integers(0, 20, 80).astype(np.int8)
+        t[10:30] = q[:20]
+        if ql + 79 <= 512:
+            jobs.append((qi, t, -79, ql + 79))           # the whole target
+        jobs.append((qi, t[:9], ql + 3, 32))             # no query cell
+        jobs.append((qi, t[:9], -40, 20))                # no query cell
+    # W (17) against W, then two P (14) in the target (a D run) or three
+    # G (7) in the query (an I run), then 20 matching letters
+    w, g3 = np.array([17], np.int8), np.full(3, 7, np.int8)
+    tail = rng.integers(0, 20, 20).astype(np.int8)
+    edge = len(qs)
+    qs += [np.concatenate([w, tail]), np.concatenate([w, g3, tail])]
+    jobs.append((edge, np.concatenate([w, np.full(2, 14, np.int8), tail]),
+                 -5, 9))
+    jobs.append((edge + 1, np.concatenate([w, tail]), -2, 9))
+    q_len = np.array([len(q) for q in qs], np.int64)
+    q_start = np.concatenate([[0], np.cumsum(q_len)[:-1]])
+    q_base = np.concatenate(qs)
+    bias = rng.integers(-4, 5, len(q_base)).astype(np.int32)
+    bias[q_start[edge:]] = 10
+    t_len = np.array([len(t) for _, t, _, _ in jobs], np.int64)
+    qid = np.array([j[0] for j in jobs])
+    d0 = np.array([j[2] for j in jobs], np.int64)
+    return dict(q_base=q_base, bias_base=bias, q_off=q_start[qid],
+                q_len=q_len[qid],
+                use_bias=((qid % 2 == 1) | (qid >= edge)).astype(np.uint8),
+                t_cat=np.concatenate([t for _, t, _, _ in jobs]),
+                t_off=np.concatenate([[0], np.cumsum(t_len)[:-1]]),
+                t_len=t_len, d_begins=d0,
+                bands=np.array([j[3] for j in jobs], np.int64),
+                low=d0 < -(t_len - 1))
+
+
+TB_KEYS = ("q_base", "bias_base", "q_off", "q_len", "use_bias", "t_cat",
+           "t_off", "t_len", "d_begins", "bands")
+
+
+def tb_select(c: dict, sel) -> dict:
+    """The jobs ``sel`` (a mask or indices) of a tb_jobs dict, letters
+    shared."""
+    out = {k: c[k] for k in ("q_base", "bias_base", "t_cat")}
+    for k in set(c) - set(out):
+        out[k] = c[k][sel]
+    return out
+
+
+D4_OPS = 16
+D4_NOTE = ("K1's 12 a cell (" + K1_NOTE + ") and the 4 plane compares "
+           "(cur == F, cur == E, the two open compares)")
+D4_WALK_OPS = 10
+D4_WALK_NOTE = ("a walk step: the band row (2), the plane bit (2), the "
+                "matrix index and the score with its bias (3), the letter "
+                "compare (1), the two decrements (2)")
+
+
+def tb_tensors(c: dict, device):
+    """(q_base, bias_base, t_cat, jobs) of a tb_jobs dict as tensors on
+    ``device``, and the job table in numpy."""
+    import torch
+
+    from diamond_tpu_torch.ops import traceback_device as tbd
+
+    jobs = tbd.job_table(*[c[k] for k in ("q_off", "q_len", "use_bias",
+                                          "t_off", "t_len", "d_begins",
+                                          "bands")])
+    x = [torch.from_numpy(np.ascontiguousarray(c[k])).to(device)
+         for k in ("q_base", "bias_base", "t_cat")]
+    return (*x, torch.from_numpy(jobs).to(device)), jobs
+
+
+def tb_check(c: dict, got, matrix32, gap_open: int, gap_extend: int,
+             refs=None):
+    """D4's (out, stats, results) of a tb_jobs dict against the native
+    tb_multi_results on the jobs whose band starts at diagonal -(t_len - 1)
+    or above (every field: out, the ok flag, and stats and ops where the
+    walk succeeded) and against banded_swipe_np(traceback=True) on the
+    others (every field, the ok flag included).  ``refs``: the pair
+    (tb_multi_results, banded_swipe_np) to hold it against, by default the
+    port's own.  Returns (native mismatches, oracle mismatches, jobs held
+    against the oracle, of those the native call got wrong)."""
+    if refs is None:
+        from diamond_tpu_torch.ops.banded_swipe import (banded_swipe_np,
+                                                        tb_multi_results)
+    else:
+        tb_multi_results, banded_swipe_np = refs
+
+    go, ge = gap_open + gap_extend, gap_extend
+    args = [c[k] for k in TB_KEYS]
+    out, stats, res = got
+    w_out, w_stats, w_res = tb_multi_results(*args, matrix32, go, ge)
+    low = c["d_begins"] < -(c["t_len"] - 1)
+    nat_mis = oracle_mis = native_wrong = 0
+    for k in range(len(out)):
+        if low[k]:
+            qo, ql = int(c["q_off"][k]), int(c["q_len"][k])
+            to, tl = int(c["t_off"][k]), int(c["t_len"][k])
+            d0 = int(c["d_begins"][k])
+            bias = c["bias_base"][qo:qo + ql] if c["use_bias"][k] else None
+            try:
+                o = banded_swipe_np(c["q_base"][qo:qo + ql],
+                                    c["t_cat"][to:to + tl], d0,
+                                    d0 + int(c["bands"][k]), matrix32, bias,
+                                    gap_open, gap_extend, traceback=True)
+            except (RuntimeError, AssertionError):
+                oracle_mis += int(stats[k, 11] != 0)
+                continue
+            r = res[k]
+            same = ((r.score, r.max_col, r.max_row)
+                    == (o.score, o.max_col, o.max_row) and stats[k, 11] == 1)
+            if same and o.score > 0:
+                same = (list(r.transcript) == o.transcript
+                        and (r.query_range, r.subject_range, r.identities,
+                             r.mismatches, r.positives, r.gap_openings,
+                             r.gaps, r.length)
+                        == (o.query_range, o.subject_range, o.identities,
+                            o.mismatches, o.positives, o.gap_openings,
+                            o.gaps, o.length))
+            oracle_mis += int(not same)
+            native_wrong += int(tuple(w_out[k]) != (o.score, o.max_col,
+                                                    o.max_row))
+            continue
+        same = (tuple(out[k]) == tuple(w_out[k])
+                and stats[k, 11] == w_stats[k, 11])
+        if same and w_stats[k, 11] and w_out[k, 0] > 0:
+            a, b = res[k].transcript, w_res[k].transcript
+            same = (tuple(stats[k]) == tuple(w_stats[k])
+                    and np.array_equal(a.codes, b.codes)
+                    and np.array_equal(a.payloads, b.payloads))
+        nat_mis += int(not same)
+    return nat_mis, oracle_mis, int(low.sum()), native_wrong
+
+
+def tb_plane_mismatches(scratch: np.ndarray, plan, jobs: np.ndarray,
+                        code) -> int:
+    """Cells of the live columns whose four plane bits differ between the
+    kernel's scratch (one slice: word (j, p, k) of a job holds band row
+    l R + k at bit l) and ``code`` (uint8 [n, T, B], plane p at bit p, as
+    traceback_device._fill_plain gives them)."""
+    words = scratch.view(np.uint32)
+    bad = 0
+    for k, (_qo, ql, _ub, _to, tl, d0, band) in enumerate(jobs.tolist()):
+        R = -(-band // 32)
+        w = words[plan.plane_off[k]:plan.plane_off[k] + tl * 4 * R]
+        bits = (w.reshape(tl, 4, R)[..., None] >> np.arange(32, dtype=np.uint32)
+                ) & 1                                    # [t, p, k, l]
+        rows = bits.transpose(0, 1, 3, 2).reshape(tl, 4, 32 * R)[..., :band]
+        got = (rows << np.arange(4, dtype=np.uint32)[None, :, None]).sum(1)
+        j0, j1 = max(0, -d0 - band + 1), min(tl, ql - d0)
+        if j1 > j0:
+            bad += int((got[j0:j1] != code[k, j0:j1, :band]).sum())
+    return bad
+
+
+def tb_work(t_len, q_len, d0, band, n_ops) -> tuple[int, int]:
+    """(exact in-query band cells, walk steps) of a D4 call: the fill's
+    work and the walk's, as the function needs them."""
+    return (int(band_cells(t_len, q_len, d0, band).sum()),
+            int(np.sum(n_ops)))
 
 
 def band_cells(t_len, q_len, d0, band):
@@ -1779,6 +2011,7 @@ def main(argv=None):
     from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
     from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.ops import traceback_device as tbd
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
     from diamond_tpu_torch.utils import log as plog
@@ -1786,7 +2019,8 @@ def main(argv=None):
     # -- 2. build -----------------------------------------------------------
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
-               "swipe_sweep", "stage2", "stage12", "stage12_join")
+               "swipe_sweep", "stage2", "stage12", "stage12_join",
+               "banded_traceback")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -1796,7 +2030,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {k}:", line.strip())
     sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6(), d1m._k_d1()
-    d1m._k_join()
+    d1m._k_join(), tbd._d4()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -2210,11 +2444,65 @@ def main(argv=None):
     if d1j_mis or not d1j_rows:
         raise RuntimeError("D1's fused pass disagrees with its references")
 
+    # D4: the traceback refill, on seeded jobs (every band class edge, bias
+    # on and off, gaps, d0 < 0, targets cut short, score-0 jobs, jobs that
+    # start below diagonal -(t_len - 1)), whole and with the planes sliced
+    # small, against its plain version on the card, the native host call
+    # and the numpy oracle
+    phase("kernel parity: D4")
+    d4_mis = d4_nat = d4_orc = d4_low = d4_nat_wrong = d4_jobs = 0
+    d4_planes = d4_cells = 0
+    d4_calls = []
+    for k, kw in enumerate((dict(), dict(bands=(1, 31, 32, 33, 512)),
+                            dict(n_queries=8, max_len=1500))):
+        c = tb_jobs(args.seed + 50 + k, **kw)
+        x, jobs_np = tb_tensors(c, "cuda")
+        want = tbd.banded_traceback_multi_plain(*x, m32, go, ge)
+        for budget in (tbd.PLANE_BUDGET_BYTES, 1 << 16):
+            plan = tbd.tb_plan(jobs_np, budget)
+            got = tbd.banded_traceback_multi(*x, m32, go, ge, plan=plan)
+            torch.cuda.synchronize()
+            if [g.shape for g in got] != [w.shape for w in want]:
+                d4_mis += len(jobs_np)
+            else:
+                d4_mis += diff("d4", got, want)
+            d4_calls.append((len(plan.slices), len(plan.launches)))
+        # the planes themselves, from the kernel's scratch
+        plan = tbd.tb_plan(jobs_np)
+        bufs = tbd.tb_buffers(plan, "cuda")
+        o3 = torch.zeros((len(jobs_np), 3), dtype=torch.int64, device="cuda")
+        o12 = torch.zeros((len(jobs_np), 12), dtype=torch.int64,
+                          device="cuda")
+        tbd.tb_launch(*x, m32, go, ge, plan, bufs, o3, o12)
+        code = tbd._fill_plain(*x, m32.long(), go, ge)[3].cpu().numpy()
+        d4_planes += tb_plane_mismatches(bufs["planes"].cpu().numpy(), plan,
+                                         jobs_np, code)
+        d4_cells += int(band_cells(jobs_np[:, 4], jobs_np[:, 1],
+                                   jobs_np[:, 5], jobs_np[:, 6]).sum())
+        r = tbd.tb_multi_device(*[c[k] for k in TB_KEYS], m.matrix32, go, ge,
+                                "cuda")
+        nat, orc, low, wrong = tb_check(c, r, m.matrix32, m.gap_open,
+                                        m.gap_extend)
+        d4_nat, d4_orc, d4_low = d4_nat + nat, d4_orc + orc, d4_low + low
+        d4_nat_wrong += wrong
+        d4_jobs += len(jobs_np)
+    print(f"D4 parity: {d4_jobs} jobs in 3 sets, each with plane slices of "
+          f"1 GB and 64 KB ((slices, launches): {d4_calls}); kernel vs "
+          f"plain mismatches {d4_mis}; "
+          f"plane cells of the live columns differing from the plain "
+          f"fill's ({d4_cells} in-query band cells) {d4_planes}; "
+          f"against the native host call {d4_nat}; {d4_low} jobs starting "
+          f"below diagonal -(t_len - 1) against the numpy oracle {d4_orc} "
+          f"(the native call differs from the oracle on {d4_nat_wrong})")
+    if d4_mis or d4_nat or d4_orc or d4_planes:
+        raise RuntimeError("D4 disagrees with its references")
+
     # -- 4-9. the paths, each with every launch count set to 0 just before --
     wrappers = dict(k1=sd.banded_swipe_multi, k3=s3.banded_swipe3,
                     k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
                     k5=sd.swipe_sweep, k6=s2.stage2_filter,
-                    d1=d1m.stage12_pairs, d1j=d1m.stage12_join)
+                    d1=d1m.stage12_pairs, d1j=d1m.stage12_join,
+                    d4=tbd.banded_traceback_multi)
 
     def zero_counts():
         for fn in wrappers.values():
@@ -2242,6 +2530,11 @@ def main(argv=None):
     stage12_pairs = d1m.stage12_pairs
     stage12_join = d1m.stage12_join
     k1_low = [0]  # K1 jobs of a run whose band starts below -(t_len - 1)
+    # D4's jobs of a run: those starting below -(t_len - 1), failed walks;
+    # the native traceback calls' failed walks, and the jobs within D4's
+    # band cap that the traceback round still refilled on the host
+    tb_count = dict(d4_low=0, d4_failed=0, native_failed=0, native_in_cap=0)
+    in_tb_round = [False]
     host_dp = [0, 0]  # host DP jobs of a run: such jobs, all jobs
 
     def count_host(jobs):
@@ -2270,6 +2563,40 @@ def main(argv=None):
         if n > captured.get("k1", (-1,))[0]:
             captured["k1"] = (n, requests)
         return run_many(self, requests)
+
+    tb_multi_device = tbd.tb_multi_device
+    tb_multi_results = pwave.tb_multi_results
+    tb_multi = pwave._tb_multi
+
+    def spy_d4(*a):
+        """D4 as the wave's traceback round calls it: low-start jobs and
+        failed walks counted, the largest call's arguments kept."""
+        t_len, d0 = a[7], a[8]
+        tb_count["d4_low"] += int((d0 < -(t_len - 1)).sum())
+        if len(t_len) > captured.get("d4", (-1,))[0]:
+            captured["d4"] = (len(t_len), a)
+        r = tb_multi_device(*a)
+        tb_count["d4_failed"] += int((r[1][:, 11] == 0).sum())
+        return r
+
+    def spy_native_tb(*a):
+        """The native fill+walk (round 1's fused call on the host route,
+        the traceback round's refill): failed walks counted, and in the
+        traceback round the jobs D4 would take."""
+        if in_tb_round[0]:
+            tb_count["native_in_cap"] += int(tbd.jobs_fit_device(
+                a[7], a[9]).sum())
+        r = tb_multi_results(*a)
+        if r is not None:
+            tb_count["native_failed"] += int((r[1][:, 11] == 0).sum())
+        return r
+
+    def spy_tb_multi(items, mat, state, device=None):
+        in_tb_round[0] = device is not None and device.device is not None
+        try:
+            return tb_multi(items, mat, state, device)
+        finally:
+            in_tb_round[0] = False
 
     def spy_d1(*a, **kw):
         """D1's pair kernel as Stage12Device would launch it, timed; no
@@ -2335,6 +2662,9 @@ def main(argv=None):
         s3.dispatch_count = 0
         k1_low[0] = 0
         host_dp[:] = [0, 0]
+        tb_count.update(d4_low=0, d4_failed=0, native_failed=0,
+                        native_in_cap=0)
+        tbd.reset_dispatch_stats()
         zero_counts()
         plog.prof_calls.clear()
         plog.prof.clear()
@@ -2348,6 +2678,11 @@ def main(argv=None):
                          (sd.FullSweep, "dispatch_block", spy_k2),
                          (d1m, "stage12_pairs", spy_d1),
                          (d1m, "stage12_join", spy_d1j),
+                         (tbd, "tb_multi_device", spy_d4),
+                         (tbd, "tb_launch", timed(tbd.tb_launch)),
+                         (tbd, "tb_compact", timed(tbd.tb_compact)),
+                         (pwave, "tb_multi_results", spy_native_tb),
+                         (pwave, "_tb_multi", spy_tb_multi),
                          *[(mod, "banded_swipe_batch_np", spy_host_dp)
                            for mod in (pext, pwave, pswipe)],
                          (pwave, "_pack_jobs", spy_pack_jobs), *patches):
@@ -2374,6 +2709,14 @@ def main(argv=None):
             device_cells=plog.prof_calls.get("ext.device_cells", 0),
             host_score_cells=plog.prof_calls.get("ext.score_cells", 0),
             host_tb_cells=plog.prof_calls.get("ext.tb_cells", 0),
+            host_tb_jobs=plog.prof_calls.get("ext.tb_jobs", 0),
+            tb_card_jobs=plog.prof_calls.get("ext.tb_card_jobs", 0),
+            tb_card_cells=plog.prof_calls.get("ext.tb_card_cells", 0),
+            d4_calls=tbd.dispatch_count, d4_wait_s=tbd.dispatch_wait_s,
+            d4_low_start_jobs=tb_count["d4_low"],
+            d4_failed_walks=tb_count["d4_failed"],
+            native_failed_walks=tb_count["native_failed"],
+            native_refill_in_cap=tb_count["native_in_cap"],
             k1_low_start_jobs=k1_low[0],
             host_dp_low_start_jobs=host_dp[0], host_dp_jobs=host_dp[1],
             s12_pairs=plog.prof_calls.get("seed.s12_pairs", 0),
@@ -2455,8 +2798,35 @@ def main(argv=None):
         print(f"blastp: self hits {len(selfs)}/{n_q}")
         if len(selfs) != n_q:
             raise RuntimeError("a query did not find itself")
-        paths["k1"] = out["card"][0]
+        paths["k1"] = paths["d4"] = out["card"][0]
         k1_batch = captured["k1"]  # K1 is timed on blastp's largest batch
+        d4_call = captured["d4"]   # and D4 on its largest traceback call
+        card, host = out["card"][0], out["host"][0]
+        cph, hph = card["phases"], host["phases"]
+        print(f"blastp traceback round: card route ext.tb_multi "
+              f"{cph.get('ext.tb_multi', 0):.4f} s, of it ext.tb_card "
+              f"{cph.get('ext.tb_card', 0):.4f} s (up "
+              f"{cph.get('ext.tb_card_up', 0):.4f}, kernels with the sync "
+              f"{cph.get('ext.tb_card_kernel', 0):.4f}, ops back "
+              f"{cph.get('ext.tb_card_back', 0):.4f}, results "
+              f"{cph.get('ext.tb_card_results', 0):.4f}; D4: {card['d4_calls']} "
+              f"calls, {card['tb_card_jobs']} jobs, {card['tb_card_cells']} "
+              f"cells, {card['launches']['d4']} launches; host refill "
+              f"{card['host_tb_jobs']} jobs of bands above the cap, "
+              f"{card['native_refill_in_cap']} within it); K1 ext.device_dp "
+              f"{cph.get('ext.device_dp', 0):.4f} s; host route "
+              f"ext.score_multi {hph.get('ext.score_multi', 0):.4f} s "
+              f"(round 1's fused fill and walk), ext.tb_multi "
+              f"{hph.get('ext.tb_multi', 0):.4f} s; D4 jobs starting below "
+              f"-(t_len - 1) {card['d4_low_start_jobs']}; failed walks: D4 "
+              f"{card['d4_failed_walks']}, native {card['native_failed_walks']}"
+              f" (card route), native {host['native_failed_walks']} (host "
+              f"route); peak card memory {card['max_memory_allocated']} "
+              f"bytes (card route), {host['max_memory_allocated']} (host "
+              f"route); {kind}, {name_power}")
+        if card["launches"]["d4"] == 0 or card["native_refill_in_cap"]:
+            raise RuntimeError("blastp: the traceback round did not refill "
+                               "every job within the band cap through D4")
         # the third route: stage 1/2 on the card too (D1's fused pass)
         res, data = drive("blastp card-stage12",
                           ["blastp", "-q", qf, "-d", db, "-f", "6"],
@@ -3162,20 +3532,27 @@ def main(argv=None):
     rows = []
 
     def time_kernel(name, kern, plain, cells, ops, note, n_bytes, reps,
-                    alone=None, unit="cell"):
+                    alone=None, unit="cell", plain_once=False):
         """Per call: reps calls of the wrapper launched from Python (the
         column of PRs 1-5); kernel only: reps calls of ``alone`` (the
         wrapper on preallocated outputs, where it takes them) replayed
         from one CUDA graph.  ``cells`` units of work (cells, or D1's
-        pairs) at ``ops`` int32 operations each."""
-        got, want = kern(), plain()
+        pairs) at ``ops`` int32 operations each.  plain_once: the plain
+        version's time is that of the call the kernel is held against (a
+        plain version of many seconds runs once)."""
+        got = kern()
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t_plain) * 1e3
         if diff(name, got, want):
             raise RuntimeError(f"{name} disagrees with its plain version on "
                                f"the main-path batch")
         kern()
         ms = cuda_ms(kern, reps)
         only_ms = graph_ms(alone or kern, reps)
-        plain_ms = cuda_ms(plain, 1)
+        plain_ms = t_plain if plain_once else cuda_ms(plain, 1)
         bound_ms, bound_by = bound(cells, ops, n_bytes)
         print(f"{name}: {cells} {unit}s, {n_bytes} bytes; {ops:g} int32 ops/"
               f"{unit} ({note}); kernel {ms:.4f} ms per call, {only_ms:.4f} ms "
@@ -3502,6 +3879,73 @@ def main(argv=None):
         alone=lambda: d1m.stage12_pairs(*xd, hid, checked=True, out=out_d1),
         unit="pair")))
 
+    # D4 on the largest traceback call of the blastp run: per call the
+    # wrapper (its plan given, as tb_multi_device gives it: buffers, the
+    # launches, the scan, the one sync for the ops' count, the
+    # compaction), kernel only the launches, scan and compaction on
+    # preallocated buffers; held against the plain version and the native
+    # host call on the same arrays
+    n_d4, a4 = d4_call
+    c4 = dict(zip(TB_KEYS, a4[:10]))
+    jobs4 = tbd.job_table(*(a4[k] for k in (2, 3, 4, 6, 7, 8, 9)))
+    if a4[1] is None:
+        jobs4[:, 2] = 0
+    bias4 = np.zeros(1, np.int32) if a4[1] is None else a4[1]
+    x4d = [torch.from_numpy(np.ascontiguousarray(v, dtype=dt)).cuda()
+           for v, dt in ((a4[0], np.int8), (bias4, np.int32),
+                         (a4[5], np.int8), (jobs4, np.int64))]
+    plan4 = tbd.tb_plan(jobs4)
+    r4 = tbd.tb_multi_device(*a4[:13], "cuda")
+    nat4, orc4, low4, wrong4 = tb_check(c4, r4, m.matrix32, m.gap_open,
+                                        m.gap_extend)
+    cells4, steps4 = tb_work(jobs4[:, 4], jobs4[:, 1], jobs4[:, 5],
+                             jobs4[:, 6], r4[1][:, 10])
+    ops4 = cells4 * D4_OPS + steps4 * D4_WALK_OPS
+    q4u = np.unique(jobs4[:, :2], axis=0)
+    bytes4 = (cells4 + 5 * steps4 + int(jobs4[:, 4].sum())
+              + 5 * int(q4u[:, 1].sum()) + 8 * jobs4.size
+              + 8 * 15 * len(jobs4) + 4 * 32 * 32)
+    R4 = tbd.rows_per_lane(jobs4[:, 6])
+    print(f"D4 call: the largest of the blastp run's "
+          f"{paths['d4']['d4_calls']} traceback calls, {n_d4} jobs in "
+          f"{len(plan4.slices)} plane slices and {len(plan4.launches)} fill "
+          f"launches (band class rows, jobs): "
+          f"{[(32 * R, c) for R, _, c in plan4.launches]}; {cells4} exact "
+          f"band cells ({int((jobs4[:, 4] * 32 * R4).sum())} walked), "
+          f"{steps4} walk ops; against the native host call: {nat4} jobs "
+          f"differ; {low4} jobs start below diagonal -(t_len - 1) (against "
+          f"the numpy oracle: {orc4} differ; the native call {wrong4}); "
+          f"failed walks {int((r4[1][:, 11] == 0).sum())}")
+    if nat4 or orc4:
+        raise RuntimeError("D4 disagrees with the native host call on the "
+                           "main-path call")
+    bufs4 = tbd.tb_buffers(plan4, "cuda")
+    ref4 = tbd.banded_traceback_multi(*x4d, m32, go, ge, plan=plan4)
+    outs4 = [torch.empty_like(t) for t in ref4]
+
+    def d4_alone():
+        tbd.tb_launch(*x4d, m32, go, ge, plan4, bufs4, outs4[0], outs4[1])
+        n_ops = outs4[1][:, 10]
+        torch.sub(torch.cumsum(n_ops, 0), n_ops, out=outs4[2])
+        tbd.tb_compact(outs4[1], bufs4, outs4[2], outs4[3], outs4[4])
+        return outs4
+
+    rows.append(("d4", time_kernel(
+        "d4", lambda: tbd.banded_traceback_multi(*x4d, m32, go, ge,
+                                                 plan=plan4),
+        lambda: tbd.banded_traceback_multi_plain(*x4d, m32, go, ge),
+        cells4, ops4 / cells4,
+        f"the mean a cell: {D4_OPS} a cell ({D4_NOTE}) and {D4_WALK_OPS} a "
+        f"walk op ({D4_WALK_NOTE})", bytes4, 10, alone=d4_alone,
+        plain_once=True)))
+    d4_fill = int((jobs4[:, 4] * 32 * R4).sum())
+    print(f"d4 bytes: the planes written and read ({cells4} cells x 4 bits, "
+          f"twice), the ops ({steps4} x 5 bytes), targets, queries with "
+          f"their bias, the job table and the outputs once; the blastp "
+          f"card route's {paths['d4']['launches']['d4']} D4 launches; "
+          f"{d4_fill} cells walked by the fill's warps; {kind}, "
+          f"{name_power}")
+
     # D3, MCL's dense step, on the matrices of the MCL run's card route: on
     # the card against the same torch ops on the CPU and the numpy loop
     phase("D3 parity and timing (MCL's dense step, torch ops)")
@@ -3597,6 +4041,11 @@ def main(argv=None):
                 "diamond_tpu/ops/stage12_jax.py:35 (_stage12_kernel) with "
                 "the host steps of diamond_tpu/search/pipeline.py:699 "
                 "(_stage12_device)", "d1j"),
+        "d4": ("banded_traceback_multi",
+               "diamond_tpu_torch/csrc/banded_traceback.cu",
+               "diamond_tpu/native/src/banded_swipe.cc:369 "
+               "(banded_swipe_tb_multi, host C++ of the traceback round, "
+               "diamond_tpu/align/wave.py:135 _tb_multi)", "d4"),
         # torch ops (fp32 matmul with TF32 off), not a hand-written kernel:
         # the reference computes this step with XLA outside any Pallas kernel
         "d3": ("mcl_dense_torch", "diamond_tpu_torch/cluster/mcl.py",

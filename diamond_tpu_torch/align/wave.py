@@ -7,7 +7,8 @@ queries in lockstep, pools every coroutine's score-only banded-DP jobs
 into one device mega-batch per round (ops/swipe_device.DeviceDP), and
 pools the traceback jobs into one cross-query native C++ batch
 (banded_swipe_tb_multi) — one host call per wave round instead of one per
-query.  Adjusted-matrix jobs keep their per-job host path (each carries
+query; on the card route the jobs within the device DP's band cap go to
+the card instead (ops/traceback_device).  Adjusted-matrix jobs keep their per-job host path (each carries
 its own 32x32 matrix).
 
 Output is collected per query id, so ordering (and therefore the byte
@@ -21,6 +22,7 @@ from diamond_tpu_torch.align.extend import (DpRequest, _run_dp_jobs,
                                       extend_query_gen)
 from diamond_tpu_torch.ops.banded_swipe import (banded_swipe_batch_np,
                                           tb_multi_results)
+from diamond_tpu_torch.utils.log import ptimer
 
 # ops.swipe_device imports torch: import it only on the device path —
 # host-only runs never pay it
@@ -131,10 +133,13 @@ def _count_cells(p, prefix):
     pcount(prefix + "_jobs", p.n)
 
 
-def _tb_multi(items, mat, state):
+def _tb_multi(items, mat, state, device=None):
     """One native DP+traceback call for the std jobs of every traceback
     request in the round.  items: [(qid, req, std_idx, out_list)].
-    Returns a set of qids whose batch failed (caller responds None)."""
+    Returns a set of qids whose batch failed (caller responds None).
+    On the card route (device a DeviceDP on one device) the jobs within
+    its band cap go to D4 (ops/traceback_device) instead, the rest to the
+    native call; results merge in job order."""
     from diamond_tpu_torch import native
 
     qblock = state.ctx.query_block
@@ -142,15 +147,34 @@ def _tb_multi(items, mat, state):
     if p is None:
         return set()
     jobs_flat = p.jobs_flat
-    _count_cells(p, "ext.tb")
-    r = tb_multi_results(
-        qblock.letters, p.bias_base, p.q_off, p.q_len, p.use_bias, p.t_cat,
-        p.t_off, p.t_len, p.d_begins, p.bands, mat.matrix32,
-        mat.gap_open + mat.gap_extend, mat.gap_extend)
-    if r is None:
-        return None  # native unavailable: caller uses the per-query path
-    _out_arr, stats_arr, results = r
-    ok = stats_arr[:, 11] != 0
+    results = [None] * p.n
+    ok = np.ones(p.n, dtype=bool)
+    card = np.zeros(p.n, dtype=bool)
+    if device is not None and device.device is not None:
+        from diamond_tpu_torch.ops import traceback_device as tbd
+
+        card = tbd.jobs_fit_device(p.t_len, p.bands)
+    for sel, on_card in ((np.flatnonzero(card), True),
+                         (np.flatnonzero(~card), False)):
+        if not len(sel):
+            continue
+        sub = _subset(p, sel)
+        _count_cells(sub, "ext.tb_card" if on_card else "ext.tb")
+        args = (qblock.letters, sub.bias_base, sub.q_off, sub.q_len,
+                sub.use_bias, sub.t_cat, sub.t_off, sub.t_len, sub.d_begins,
+                sub.bands, mat.matrix32, mat.gap_open + mat.gap_extend,
+                mat.gap_extend)
+        if on_card:
+            with ptimer("ext.tb_card"):
+                r = tbd.tb_multi_device(*args, device.device)
+        else:
+            r = tb_multi_results(*args)
+        if r is None:
+            return None  # native unavailable: caller uses the per-query path
+        _out_arr, stats_arr, res = r
+        ok[sel] = stats_arr[:, 11] != 0
+        for k, rk in zip(sel, res):
+            results[k] = rk
     failed = {jobs_flat[k][0] for k in np.nonzero(~ok)[0]}
     by_req = {}
     for (qid, k, *_rest), res in zip(jobs_flat, results):
@@ -161,6 +185,18 @@ def _tb_multi(items, mat, state):
         for k, res in by_req.get(qid, []):
             out[k] = res
     return failed
+
+
+def _subset(p, sel):
+    """The jobs ``sel`` of a _PackedJobs (the letters shared)."""
+    s = _PackedJobs()
+    s.jobs_flat = [p.jobs_flat[k] for k in sel]
+    s.n = len(sel)
+    s.t_cat, s.bias_base = p.t_cat, p.bias_base
+    for name in ("t_off", "t_len", "q_off", "q_len", "use_bias", "d_begins",
+                 "bands"):
+        setattr(s, name, getattr(p, name)[sel])
+    return s
 
 
 def _score_multi(items, mat, state):
@@ -330,7 +366,7 @@ def _execute_round(reqs: dict, mat, device,
                     out[k] = v
     if tb_items:
         with ptimer("ext.tb_multi"):
-            failed = _tb_multi(tb_items, mat, state)
+            failed = _tb_multi(tb_items, mat, state, device)
         if failed is None:
             # no native library: per-request host fallback
             for qid, r, _std, _out in tb_items:

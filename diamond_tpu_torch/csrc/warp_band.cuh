@@ -1,8 +1,10 @@
-// One target column of the score-only banded local affine-gap DP for a
-// band held by one warp: the column step shared by the banded extension
-// kernel (banded_swipe.cu, K1) and the uniform-band kernel's warp path
-// (uniform_swipe.cu, K4).  The two differ only in where a cell's score
-// comes from; everything after the score is this step.
+// One target column of the banded local affine-gap DP for a band held by
+// one warp: the column step shared by the banded extension kernel
+// (banded_swipe.cu, K1), the uniform-band kernel's warp path
+// (uniform_swipe.cu, K4) and the traceback fill (banded_traceback.cu,
+// D4).  They differ only in where a cell's score comes from and in what
+// they keep of each row (D4: its trace plane bits, through the hook);
+// everything after the score is this step.
 //
 // Layout: lane l holds band rows r0 = l * R .. r0 + R - 1 in registers.
 // The recurrence is ops/swipe_uniform.column_step's, exact:
@@ -40,14 +42,23 @@ struct Best {
   int best = 0, col = 0, row = 0;
 };
 
+// The per-row hook of a score-only caller: keeps nothing.
+struct NoHook {
+  __device__ __forceinline__ void operator()(int, int, int, int) const {}
+};
+
 // s[k]: the score of row r0 + k (NEG where the row scores nothing);
 // valid bit k: the cell of row r0 + k exists.  H and E are updated in
 // place; lb/lc/lr are the lane's best, its first column and highest row.
-template <int R>
+// hook(k, h, f, e) runs for every row-in-lane k on every lane of the warp
+// at once (so it may vote): h the row's new H, f the vertical gap
+// entering the row (F of the row above), e its E on entry.
+template <int R, class Hook = NoHook>
 __device__ __forceinline__ void column(int (&H)[R], int (&E)[R],
                                        const int (&s)[R], unsigned valid,
                                        int lane, int r0, int j, int go,
-                                       int ge, int& lb, int& lc, int& lr) {
+                                       int ge, int& lb, int& lc, int& lr,
+                                       Hook&& hook = Hook()) {
   int cur0[R];
   int fo = 0;  // the lane's outgoing F with nothing entering its first row
 #pragma unroll
@@ -76,6 +87,7 @@ __device__ __forceinline__ void column(int (&H)[R], int (&E)[R],
 #pragma unroll
   for (int k = 0; k < R; ++k) {
     const int hn = (valid >> k) & 1u ? max(cur0[k], f) : 0;
+    hook(k, hn, f, E[k]);
     f = __viaddmax_s32_relu(f, -ge, cur0[k] - go);
     lmax = max(lmax, hn);
     H[k] = hn;

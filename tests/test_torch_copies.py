@@ -22,7 +22,12 @@ ALLOWED = {
     "align/extend.py": ("direct DP route runs the port's uniform-band "
                         "kernel (K4) on the resolved device, bands past its "
                         "cap on the host DP; knob renamed", 28),
-    "align/wave.py": ("comment on the lazy torch import", 5),
+    "align/wave.py": ("comment on the lazy torch import; on the card "
+                      "route the traceback round refills the jobs within "
+                      "DeviceDP's band cap with the port's D4 "
+                      "(ops/traceback_device.tb_multi_device) on the "
+                      "DeviceDP's device, the rest with the native call, "
+                      "results merged in job order", 70),
     "search/pipeline.py": ("device route builds the port's DeviceDP on "
                            "the resolved device, with --mesh over the "
                            "port's make_mesh; stage 1/2 on the card hands "

@@ -9,9 +9,10 @@ one strip, positive biases, tied bests, score-0 rows and pad cells that
 score), the stage-2 filter (K6, also on pair counts of no multiple of
 16, zero-width windows and hamming_id at the edge), the stage-1/2 pair
 filter (D1) and D1's whole fused pass over seed joins (stage12_join, also
-against the native host pass, whole and in chunks) against their plain
-PyTorch versions on the same card tensors and against the host DP or a
-numpy oracle; exact integer equality.  MCL's dense step (D3, torch ops)
+against the native host pass, whole and in chunks) and the traceback
+refill (D4, its planes too) against their plain PyTorch versions on the
+same card tensors and against the host DP or a numpy oracle; exact
+integer equality.  MCL's dense step (D3, torch ops)
 on a 512-node component against the same ops on the CPU and the numpy
 loop (equal cluster assignments, TF32 off), and blocked blastp (-b) with
 K1 on the card against the host DP.  ``--mesh`` on the card's shards:
@@ -658,3 +659,52 @@ def test_self_test_command_on_gpu(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.startswith("Self test OK.\n")
     assert int(r.stdout.split("K1 ")[1]) > 0
+
+
+@pytest.mark.gpu
+def test_banded_traceback_kernel_matches_plain_and_native_on_gpu():
+    """D4 (csrc/banded_traceback.cu) on the card against its plain version
+    on the same card tensors (every output: out, stats, op offsets, codes,
+    payloads), whole and with the planes in 64 KB slices; its four planes,
+    decoded from its scratch, against the plain fill's on the live
+    columns; and through tb_multi_device against the native host call
+    (jobs starting at diagonal -(t_len - 1) or above) and the numpy oracle
+    (the others)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cs = _smoke()
+    from diamond_tpu_torch.ops import traceback_device as tbd
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    m = ScoreMatrix("BLOSUM62")
+    go, ge = m.gap_open + m.gap_extend, m.gap_extend
+    m32 = torch.from_numpy(m.matrix32.astype(np.int32)).cuda()
+    for seed, kw in ((21, {}), (22, dict(bands=(1, 31, 32, 33, 512))),
+                     (23, dict(n_queries=8, max_len=1500))):
+        c = cs.tb_jobs(seed, **kw)
+        x, jobs = cs.tb_tensors(c, "cuda")
+        want = tbd.banded_traceback_multi_plain(*x, m32, go, ge)
+        for budget in (tbd.PLANE_BUDGET_BYTES, 1 << 16):
+            launches = tbd.banded_traceback_multi.launches
+            got = tbd.banded_traceback_multi(*x, m32, go, ge,
+                                             plan=tbd.tb_plan(jobs, budget))
+            torch.cuda.synchronize()
+            assert tbd.banded_traceback_multi.launches > launches
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and torch.equal(g, w)
+        # the planes themselves, from the kernel's scratch (one slice)
+        plan = tbd.tb_plan(jobs)
+        bufs = tbd.tb_buffers(plan, "cuda")
+        out = torch.zeros((len(jobs), 3), dtype=torch.int64, device="cuda")
+        stats = torch.zeros((len(jobs), 12), dtype=torch.int64,
+                            device="cuda")
+        tbd.tb_launch(*x, m32, go, ge, plan, bufs, out, stats)
+        code = tbd._fill_plain(*x, m32.long(), go, ge)[3].cpu().numpy()
+        assert cs.tb_plane_mismatches(bufs["planes"].cpu().numpy(), plan,
+                                      jobs, code) == 0
+        assert torch.equal(out, want[0]) and torch.equal(stats, want[1])
+        r = tbd.tb_multi_device(*[c[k] for k in cs.TB_KEYS], m.matrix32,
+                                go, ge, "cuda")
+        nat, orc, low, _ = cs.tb_check(c, r, m.matrix32, m.gap_open,
+                                       m.gap_extend)
+        assert (nat, orc) == (0, 0)
