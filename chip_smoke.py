@@ -2712,7 +2712,9 @@ def main(argv=None):
             host_tb_jobs=plog.prof_calls.get("ext.tb_jobs", 0),
             tb_card_jobs=plog.prof_calls.get("ext.tb_card_jobs", 0),
             tb_card_cells=plog.prof_calls.get("ext.tb_card_cells", 0),
-            d4_calls=tbd.dispatch_count, d4_wait_s=tbd.dispatch_wait_s,
+            d4_calls=tbd.dispatch_count,
+            d4_wait_s=sum(plog.prof.get("ext.tb_card_" + k, 0.0) for k in
+                          ("up", "kernel", "back", "results")),
             d4_low_start_jobs=tb_count["d4_low"],
             d4_failed_walks=tb_count["d4_failed"],
             native_failed_walks=tb_count["native_failed"],
@@ -2722,7 +2724,8 @@ def main(argv=None):
             s12_pairs=plog.prof_calls.get("seed.s12_pairs", 0),
             s12_dispatches=d1m.dispatch_count,
             s12_kernel_pairs=d1m.dispatch_pairs,
-            s12_wait_s=d1m.dispatch_wait_s,
+            s12_wait_s=sum(plog.prof.get("seed.s12_" + k, 0.0)
+                           for k in ("upload", "card", "rows")),
             max_memory_allocated=torch.cuda.max_memory_allocated())
         phases = sorted(plog.prof.items(), key=lambda kv: -kv[1])[:10]
         print(f"{route}: " + json.dumps(res))
@@ -3467,6 +3470,7 @@ def main(argv=None):
     cells = sum(len(q) for q, _ in queries5) * n_letters
     ss = sd.SwipeSweep(m.matrix32, m.gap_open, m.gap_extend, device="cuda")
     sd.reset_dispatch_stats()
+    plog.prof_calls.pop("sweep.walk_cells", None)
     zero_counts()
     events.clear()
     t0 = time.perf_counter()
@@ -3487,7 +3491,8 @@ def main(argv=None):
                        != S).sum())
     chunks5 = ss.chunks(letters)
     print(f"SwipeSweep: {len(queries5)} queries x {len(letters)} targets, "
-          f"{cells} cells (q_len x t_len), {sd.dispatch_cells} cells walked, "
+          f"{cells} cells (q_len x t_len), "
+          f"{plog.prof_calls.get('sweep.walk_cells', 0)} cells walked, "
           f"{counts['k5']} K5 launches over {len(chunks5)} length classes, "
           f"{wall:.2f} s on {kind} ({name_power}); kernel busy {busy:.4f} s, "
           f"idle share {1 - busy / wall:.4f}; scores vs FullSweep (K2) "

@@ -76,68 +76,66 @@ def swipe_all_protein(qblock, tblock, cfg) -> dict:
     from diamond_tpu_torch.masking.tantan import Tantan
     from diamond_tpu_torch.search.pipeline import mask_block
     from diamond_tpu_torch.stats.cbs import hauser_bias_i8
-    from diamond_tpu_torch.utils.log import padd, perf_counter
+    from diamond_tpu_torch.utils.log import ptimer
 
-    t0 = perf_counter()
-    cfg.matrix.set_db_letters(cfg.db_letters or tblock.n_letters)
-    if cfg.masking == "tantan":
-        masker = Tantan(cfg.matrix.matrix32)
-        mask_block(tblock, masker)
-        if qblock is not tblock:
-            mask_block(qblock, masker)
-    t0 = padd("swipe.mask", t0)
+    with ptimer("swipe.mask"):
+        cfg.matrix.set_db_letters(cfg.db_letters or tblock.n_letters)
+        if cfg.masking == "tantan":
+            masker = Tantan(cfg.matrix.matrix32)
+            mask_block(tblock, masker)
+            if qblock is not tblock:
+                mask_block(qblock, masker)
     m = cfg.matrix
-    disp = _device_swipe_dispatch(qblock, tblock, cfg)
-    t0 = padd("swipe.dispatch", t0)
+    with ptimer("swipe.dispatch"):
+        disp = _device_swipe_dispatch(qblock, tblock, cfg)
     host_pre = None
     if disp is not None:
-        # host long-sequence tail runs WHILE the chip computes the
-        # sweep: every pallas call above is already in flight
-        q_rows, t_order, pending = disp
-        tlens = tblock.lengths.astype(np.int64)
-        in_dev = np.zeros(len(tblock), dtype=bool)
-        in_dev[t_order] = True
-        tail = np.nonzero(~in_dev & (tlens > 0))[0]
-        all_t = np.nonzero(tlens > 0)[0]
-        use_h = cbs_mod.hauser(cfg.comp_based_stats)
-        host_pre = {}
+        with ptimer("swipe.host_tail"):
+            # host long-sequence tail runs WHILE the chip computes the
+            # sweep: every pallas call above is already in flight
+            q_rows, t_order, pending = disp
+            tlens = tblock.lengths.astype(np.int64)
+            in_dev = np.zeros(len(tblock), dtype=bool)
+            in_dev[t_order] = True
+            tail = np.nonzero(~in_dev & (tlens > 0))[0]
+            all_t = np.nonzero(tlens > 0)[0]
+            use_h = cbs_mod.hauser(cfg.comp_based_stats)
+            host_pre = {}
+            for qi in range(len(qblock)):
+                q = qblock.seq(qi)
+                if len(q) == 0 or (q == 23).all():
+                    continue
+                metas_h = tail if qi in q_rows else all_t
+                if len(metas_h) == 0:
+                    host_pre[qi] = (metas_h, np.zeros(0, dtype=np.int64))
+                    continue
+                bias = (hauser_bias_i8(q, m.matrix32, m.background_scores)
+                        if use_h else None)
+                jobs = [(tblock.seq(t), -(int(tlens[t]) - 1), len(q))
+                        for t in metas_h]
+                res_h = banded_swipe_batch_np(q, bias, jobs, m.matrix32,
+                                              m.gap_open, m.gap_extend)
+                host_pre[qi] = (metas_h, np.fromiter(
+                    (int(np.asarray(r).flat[0]) for r in res_h),
+                    dtype=np.int64, count=len(metas_h)))
+        S = pending.wait()
+    results = {}
+    with ptimer("swipe.finish"):  # e-values, culling, traceback per query
         for qi in range(len(qblock)):
             q = qblock.seq(qi)
-            if len(q) == 0 or (q == 23).all():
-                continue
-            metas_h = tail if qi in q_rows else all_t
-            if len(metas_h) == 0:
-                host_pre[qi] = (metas_h, np.zeros(0, dtype=np.int64))
-                continue
-            bias = (hauser_bias_i8(q, m.matrix32, m.background_scores)
-                    if use_h else None)
-            jobs = [(tblock.seq(t), -(int(tlens[t]) - 1), len(q))
-                    for t in metas_h]
-            res_h = banded_swipe_batch_np(q, bias, jobs, m.matrix32,
-                                          m.gap_open, m.gap_extend)
-            host_pre[qi] = (metas_h, np.fromiter(
-                (int(np.asarray(r).flat[0]) for r in res_h),
-                dtype=np.int64, count=len(metas_h)))
-        padd("swipe.host_tail", t0)
-        S = pending.wait()
-    t0 = perf_counter()
-    results = {}
-    for qi in range(len(qblock)):
-        q = qblock.seq(qi)
-        i8 = hauser_bias_i8(q, m.matrix32, m.background_scores)
-        dev_q = None
-        if host_pre is not None and qi in host_pre:
-            tail_q, tail_scores = host_pre[qi]
-            if qi in q_rows:
-                dev_q = (t_order, S[q_rows[qi]], tail_q, tail_scores)
-            else:
-                dev_q = (np.zeros(0, dtype=np.int64),
-                         np.zeros(0, dtype=np.int32), tail_q, tail_scores)
-        matches = swipe_all_query(
-            [(0, q)], len(q), {0: i8}, tblock, cfg, dev_scores=dev_q)
-        if matches:
-            results[qi] = matches
-    padd("swipe.finish", t0)  # e-values, culling, traceback per query
+            i8 = hauser_bias_i8(q, m.matrix32, m.background_scores)
+            dev_q = None
+            if host_pre is not None and qi in host_pre:
+                tail_q, tail_scores = host_pre[qi]
+                if qi in q_rows:
+                    dev_q = (t_order, S[q_rows[qi]], tail_q, tail_scores)
+                else:
+                    dev_q = (np.zeros(0, dtype=np.int64),
+                             np.zeros(0, dtype=np.int32), tail_q, tail_scores)
+            matches = swipe_all_query(
+                [(0, q)], len(q), {0: i8}, tblock, cfg, dev_scores=dev_q)
+            if matches:
+                results[qi] = matches
     return results
 
 

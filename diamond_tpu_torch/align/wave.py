@@ -417,7 +417,8 @@ def extend_wave(ctx, by_query, qids, device=None):
 
     while pending:
         current, pending = pending, {}
-        responses = _execute_round(current, mat, device, state)
+        with ptimer("wave.round"):
+            responses = _execute_round(current, mat, device, state)
         with ptimer("ext.gen_step"):
             for qid in current:
                 step(qid, responses[qid])

@@ -30,6 +30,8 @@ from __future__ import annotations
 import argparse
 import sys
 
+from diamond_tpu_torch.utils.log import ptimer
+
 
 def build_parser():
     p = argparse.ArgumentParser(prog="diamond-tpu-torch",
@@ -325,7 +327,6 @@ def _device(command: str) -> str:
 def cmd_blastp(args):
     from diamond_tpu_torch.search.config import SearchConfig
     from diamond_tpu_torch.search.pipeline import Pipeline
-    from diamond_tpu_torch.utils.log import ptimer
 
     validate_filters(args)
     validate_global_ranking(args)
@@ -337,37 +338,39 @@ def cmd_blastp(args):
     with ptimer("cli.load"):
         qb = load_block(args.query)
         tb, taxonomy = load_block(args.db, with_taxonomy=True)
-    tb, taxonomy, db_letters = apply_taxon_filter(tb, taxonomy,
-                                                   args.taxonlist,
-                                                   args.taxon_exclude)
-    if args.dbsize:
-        db_letters = args.dbsize  # --dbsize overrides e-value stats
-    cfg = SearchConfig(
-        matrix=_make_matrix(args),
-        sensitivity=args.sensitivity,
-        comp_based_stats=args.comp_based_stats,
-        max_evalue=args.evalue,
-        max_target_seqs=args.max_target_seqs,
-        max_hsps=args.max_hsps,
-        toppercent=args.top,
-        index_chunks=args.index_chunks,
-        masking=args.masking,
-        motif_masking=None if args.motif_masking is None else bool(args.motif_masking),
-        min_id=args.min_id,
-        approx_min_id=args.approx_id,
-        query_cover=args.query_cover,
-        subject_cover=args.subject_cover,
-        no_self_hits=args.no_self_hits,
-        freq_masking=args.freq_masking,
-        ext=args.ext,
-        global_ranking=args.global_ranking,
-        n_shapes=args.shapes,
-        shape_mask=args.shape_mask,
-        minimizer_window=args.minimizer_window,
-        db_letters=db_letters,
-        mesh_devices=args.mesh,
-        algo=args.algo,
-    )
+    with ptimer("cli.config"):
+        tb, taxonomy, db_letters = apply_taxon_filter(tb, taxonomy,
+                                                       args.taxonlist,
+                                                       args.taxon_exclude)
+        if args.dbsize:
+            db_letters = args.dbsize  # --dbsize overrides e-value stats
+        cfg = SearchConfig(
+            matrix=_make_matrix(args),
+            sensitivity=args.sensitivity,
+            comp_based_stats=args.comp_based_stats,
+            max_evalue=args.evalue,
+            max_target_seqs=args.max_target_seqs,
+            max_hsps=args.max_hsps,
+            toppercent=args.top,
+            index_chunks=args.index_chunks,
+            masking=args.masking,
+            motif_masking=(None if args.motif_masking is None
+                           else bool(args.motif_masking)),
+            min_id=args.min_id,
+            approx_min_id=args.approx_id,
+            query_cover=args.query_cover,
+            subject_cover=args.subject_cover,
+            no_self_hits=args.no_self_hits,
+            freq_masking=args.freq_masking,
+            ext=args.ext,
+            global_ranking=args.global_ranking,
+            n_shapes=args.shapes,
+            shape_mask=args.shape_mask,
+            minimizer_window=args.minimizer_window,
+            db_letters=db_letters,
+            mesh_devices=args.mesh,
+            algo=args.algo,
+        )
     seed_index = None
     if args.target_indexed:
         from diamond_tpu_torch.data.seed_index import load_seed_index
@@ -386,8 +389,10 @@ def cmd_blastp(args):
         rounds = rounds_for(cfg.sensitivity, args.iterate)
         results = iterated_search(cfg, qb, tb, rounds)
     else:
-        results = Pipeline(cfg, qb, tb, target_seed_index=seed_index,
-                           device=device).search()
+        with ptimer("search.setup"):
+            pipe = Pipeline(cfg, qb, tb, target_seed_index=seed_index,
+                            device=device)
+        results = pipe.search()
     if args.outfmt and args.outfmt[0] in ("100", "daa"):
         from diamond_tpu_torch.data.daa import write_daa
 
@@ -915,12 +920,20 @@ def cmd_dbinfo(args):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if hasattr(args, "verbose"):
-        from diamond_tpu_torch.utils.log import set_level
+    """One command; with DIAMOND_TPU_PROF, the span ``cli.request`` around
+    it is the root of every span it opens (one request id)."""
+    with ptimer("cli.request"):
+        return _main(argv)
 
-        set_level(verbose=args.verbose, quiet=args.quiet,
-                  log_path=args.log_path)
+
+def _main(argv):
+    with ptimer("cli.args"):
+        args = build_parser().parse_args(argv)
+        if hasattr(args, "verbose"):
+            from diamond_tpu_torch.utils.log import set_level
+
+            set_level(verbose=args.verbose, quiet=args.quiet,
+                      log_path=args.log_path)
     import time as _time
 
     _start = _time.time()

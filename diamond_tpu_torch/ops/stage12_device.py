@@ -33,7 +33,6 @@ so the search output does not depend on the route.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -58,14 +57,12 @@ MAX_PAIRS = (1 << 31) - (1 << 20)  # the kernel's int32 grid-stride index
 # Dispatch telemetry (always on; a few int adds per call).
 dispatch_count = 0      # one-hot products and kernel chunks, either device
 dispatch_pairs = 0      # pairs the fused filter scored
-dispatch_wait_s = 0.0   # wall time inside run / run_join (copies included)
 
 
 def reset_dispatch_stats():
-    global dispatch_count, dispatch_pairs, dispatch_wait_s
+    global dispatch_count, dispatch_pairs
     dispatch_count = 0
     dispatch_pairs = 0
-    dispatch_wait_s = 0.0
 
 
 def check_positions(qp, sp, windows, q_len: int, s_len: int):
@@ -676,74 +673,74 @@ class Stage12Device:
         at a time.
         Spans: seed.s12_upload, seed.s12_card (the calls, their syncs
         included), seed.s12_rows (the rows back)."""
-        global dispatch_count, dispatch_pairs, dispatch_wait_s
-        from diamond_tpu_torch.utils.log import padd, perf_counter
+        global dispatch_count, dispatch_pairs
+        from diamond_tpu_torch.utils.log import ptimer
 
-        t0 = t_start = perf_counter()
-        q_counts = np.diff(join.q_start)
-        if group_keep is not None:
-            q_counts = q_counts * group_keep
-        pairs = q_counts * np.diff(join.s_start)
-        if not len(pairs) or not pairs.any():
-            return np.empty((0, 4), dtype=np.int64)
-        check_join(len(q_letters), len(s_letters), join.q_pos, join.s_pos,
-                   int(win.max()), shape.length)
-        if int(np.asarray(cut).min()) < 0:
-            raise ValueError("stage12_join takes no negative cutoff")
-        dev = self.device
+        with ptimer("seed.s12_upload"):
+            q_counts = np.diff(join.q_start)
+            if group_keep is not None:
+                q_counts = q_counts * group_keep
+            pairs = q_counts * np.diff(join.s_start)
+            if not len(pairs) or not pairs.any():
+                return np.empty((0, 4), dtype=np.int64)
+            check_join(len(q_letters), len(s_letters), join.q_pos, join.s_pos,
+                       int(win.max()), shape.length)
+            if int(np.asarray(cut).min()) < 0:
+                raise ValueError("stage12_join takes no negative cutoff")
+            dev = self.device
 
-        def up(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-                dev)
+            def up(a, dtype):
+                return torch.from_numpy(
+                    np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
-        masks = [torch.from_numpy(np.asarray(
-            m.masks if m is not None and not m.empty else [],
-            dtype=np.uint64).view(np.int64)).to(dev)
-            for m in (current, previous)]
-        a = JoinArgs(
-            m32=self.m32, q_idx=self._table(q_idx_tbl, np.int32),
-            q_starts=self._table(q_starts, np.int32),
-            cut=self._table(cut, np.int32), win=self._table(win, np.int32),
-            s_idx=(None if s_idx_tbl is None
-                   else self._table(s_idx_tbl, np.int32)),
-            red_map=self._table(reduction.map, np.int8),
-            red_size=int(reduction.size),
-            shape_pos=up(shape.positions, np.int32),
-            shape_len=int(shape.length), shape_mask=int(shape.mask),
-            cur=masks[0], prev=masks[1], part_lo=int(part_lo),
-            part_hi=int(part_hi), seedp_mask=int(seedp_mask),
-            part_tbl=None if part_tbl is None else up(part_tbl, np.int16),
-            hamming_id=int(hamming_id), first_shape=bool(first_shape),
-            chunked=bool(chunked), do_leftmost=bool(do_leftmost),
-            self_search=bool(self_search))
-        ql, sl = self._block(q_letters), self._block(s_letters)
-        qm = up(np.asarray(q_seed_mask).view(np.uint8), np.uint8)
-        q_start, q_pos = up(join.q_start, np.int64), up(join.q_pos, np.int64)
-        s_start, s_pos = up(join.s_start, np.int64), up(join.s_pos, np.int32)
-        keep = None if group_keep is None else up(group_keep, np.bool_)
-        t0 = padd("seed.s12_upload", t0)
-        cum = np.zeros(len(pairs) + 1, dtype=np.int64)
-        np.cumsum(pairs, out=cum[1:])
-        e_cum = np.zeros(len(pairs) + 1, dtype=np.int64)
-        np.cumsum(q_counts, out=e_cum[1:])
-        out = []
-        g0, n_groups = 0, len(pairs)
-        while g0 < n_groups:
-            g1 = int(np.searchsorted(cum, cum[g0] + cap, side="right")) - 1
-            g1 = max(g1, g0 + 1)
-            n = int(cum[g1] - cum[g0])
-            if n:
-                dispatch_count += 1
-                dispatch_pairs += n
-                out.append(stage12_join(
-                    ql, sl, qm, q_start, q_pos, s_start, s_pos, keep, g0, g1,
-                    a, counts=(int(e_cum[g1] - e_cum[g0]), n)))
-            g0 = g1
-        t0 = padd("seed.s12_card", t0)
-        rows = (torch.cat(out).cpu().numpy().astype(np.int64) if out
-                else np.empty((0, 4), dtype=np.int64))
-        padd("seed.s12_rows", t0)
-        dispatch_wait_s += perf_counter() - t_start
+            masks = [torch.from_numpy(np.asarray(
+                m.masks if m is not None and not m.empty else [],
+                dtype=np.uint64).view(np.int64)).to(dev)
+                for m in (current, previous)]
+            a = JoinArgs(
+                m32=self.m32, q_idx=self._table(q_idx_tbl, np.int32),
+                q_starts=self._table(q_starts, np.int32),
+                cut=self._table(cut, np.int32), win=self._table(win, np.int32),
+                s_idx=(None if s_idx_tbl is None
+                       else self._table(s_idx_tbl, np.int32)),
+                red_map=self._table(reduction.map, np.int8),
+                red_size=int(reduction.size),
+                shape_pos=up(shape.positions, np.int32),
+                shape_len=int(shape.length), shape_mask=int(shape.mask),
+                cur=masks[0], prev=masks[1], part_lo=int(part_lo),
+                part_hi=int(part_hi), seedp_mask=int(seedp_mask),
+                part_tbl=None if part_tbl is None else up(part_tbl, np.int16),
+                hamming_id=int(hamming_id), first_shape=bool(first_shape),
+                chunked=bool(chunked), do_leftmost=bool(do_leftmost),
+                self_search=bool(self_search))
+            ql, sl = self._block(q_letters), self._block(s_letters)
+            qm = up(np.asarray(q_seed_mask).view(np.uint8), np.uint8)
+            q_start = up(join.q_start, np.int64)
+            q_pos = up(join.q_pos, np.int64)
+            s_start = up(join.s_start, np.int64)
+            s_pos = up(join.s_pos, np.int32)
+            keep = None if group_keep is None else up(group_keep, np.bool_)
+        with ptimer("seed.s12_card"):
+            cum = np.zeros(len(pairs) + 1, dtype=np.int64)
+            np.cumsum(pairs, out=cum[1:])
+            e_cum = np.zeros(len(pairs) + 1, dtype=np.int64)
+            np.cumsum(q_counts, out=e_cum[1:])
+            out = []
+            g0, n_groups = 0, len(pairs)
+            while g0 < n_groups:
+                g1 = int(np.searchsorted(cum, cum[g0] + cap, side="right")) - 1
+                g1 = max(g1, g0 + 1)
+                n = int(cum[g1] - cum[g0])
+                if n:
+                    dispatch_count += 1
+                    dispatch_pairs += n
+                    out.append(stage12_join(
+                        ql, sl, qm, q_start, q_pos, s_start, s_pos, keep, g0,
+                        g1, a, counts=(int(e_cum[g1] - e_cum[g0]), n)))
+                g0 = g1
+        with ptimer("seed.s12_rows"):
+            rows = (torch.cat(out).cpu().numpy().astype(np.int64) if out
+                    else np.empty((0, 4), dtype=np.int64))
         return rows
 
     def run_join(self, q_letters, s_letters, join, qp, sp, windows, cutoffs,
@@ -755,7 +752,7 @@ class Stage12Device:
         every pair of the small groups, reach the fused filter.  Returns
         (keep bool [N], scores int32 [N]) in expanded-pair order; a pair
         that fails stage 1 in the product keeps score 0."""
-        global dispatch_count, dispatch_wait_s
+        global dispatch_count
         check_positions(qp, sp, windows, len(q_letters), len(s_letters))
         q_counts = np.diff(join.q_start)
         s_counts = np.diff(join.s_start)
@@ -765,7 +762,6 @@ class Stage12Device:
         if len(big) == 0:
             return self.run(q_letters, s_letters, qp, sp, windows, cutoffs,
                             hamming_id, checked=True)
-        t0 = time.perf_counter()
         n = len(qp)
         pair_starts = np.zeros(len(totals) + 1, dtype=np.int64)
         np.cumsum(totals, out=pair_starts[1:])
@@ -805,7 +801,6 @@ class Stage12Device:
                     * s_counts[g][:, None, None]
                     + b[:, None, None] + is_[None, None, :])
             keep1[rows[mask]] = counts[mask] >= hamming_id
-        dispatch_wait_s += time.perf_counter() - t0
 
         sel = np.nonzero(~is_big | keep1)[0]
         keep = np.zeros(n, dtype=bool)
@@ -823,16 +818,10 @@ class Stage12Device:
         """(keep bool [N], scores int32 [N]) of every pair (numpy in and
         out), in chunks of at most ``chunk`` (MAX_CHUNK) pairs.
         Raises ValueError when a pair reads outside its blocks."""
-        global dispatch_wait_s
-        t0 = time.perf_counter()
-        try:
-            if not checked:
-                check_positions(qp, sp, windows, len(q_letters),
-                                len(s_letters))
-            return self._run(q_letters, s_letters, qp, sp, windows, cutoffs,
-                             hamming_id)
-        finally:
-            dispatch_wait_s += time.perf_counter() - t0
+        if not checked:
+            check_positions(qp, sp, windows, len(q_letters), len(s_letters))
+        return self._run(q_letters, s_letters, qp, sp, windows, cutoffs,
+                         hamming_id)
 
     def _run(self, q_letters, s_letters, qp, sp, windows, cutoffs,
              hamming_id: int):

@@ -30,7 +30,6 @@ never depends on which jobs were routed here.
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -41,7 +40,7 @@ from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
 from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND, pad_band,
                                                  uniform_walk)
 from diamond_tpu_torch.utils.device import resolve_device
-from diamond_tpu_torch.utils.log import pcount, ptimer
+from diamond_tpu_torch.utils.log import kspan, pcount, ptimer
 
 NEG = -(2 ** 20)
 MAX_DEVICE_BAND = 512        # 16 rows per lane of one warp
@@ -49,17 +48,13 @@ ROWS_PER_LANE = tuple(range(1, 17))  # the kernel's band classes
 JOB_COLS = 5                 # jobs[k] = (t_off, t_len, d0, band, req)
 MAX_BATCH_LETTERS = 1 << 30  # per launch batch: offsets are int32
 
-# Dispatch telemetry (always on; a few int adds per launch).
+# Dispatch telemetry (always on; an int add per launch).
 dispatch_count = 0      # kernel launches made by DeviceDP (either device)
-dispatch_cells = 0      # cells those launches walk: t_len x padded band
-dispatch_wait_s = 0.0   # wall time inside run_many (pack+send+compute+read)
 
 
 def reset_dispatch_stats():
-    global dispatch_count, dispatch_cells, dispatch_wait_s
+    global dispatch_count
     dispatch_count = 0
-    dispatch_cells = 0
-    dispatch_wait_s = 0.0
 
 
 def rows_per_lane(band: int) -> int:
@@ -331,30 +326,30 @@ class DeviceDP:
             self._m32_on[dev] = torch.from_numpy(self._m32_host).to(dev)
         return self._m32_on[dev]
 
-    def run_many(self, requests):
-        global dispatch_wait_s
-        t0 = time.perf_counter()
-        try:
-            return self._run_many(requests)
-        finally:
-            dispatch_wait_s += time.perf_counter() - t0
-
     def launch(self, p: PackedBatch, kernel=banded_swipe_multi):
         """One launch of ``kernel`` per band class of a packed batch; returns
-        (best, max_col, max_row) int32 tensors in the batch's job order."""
-        global dispatch_count, dispatch_cells
-        m32 = self.matrix_on(p.t_cat.device)
-        outs = []
-        for R, lo, hi in p.classes:
-            outs.append(kernel(p.t_cat, p.q_cat, p.bias_cat, p.jobs[lo:hi],
-                               p.reqs, m32, self.go, self.ge, R))
-        dispatch_count += len(p.classes)
-        dispatch_cells += p.walk_cells
-        if not outs:
-            return tuple(torch.zeros(0, dtype=torch.int32) for _ in range(3))
-        return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+        (best, max_col, max_row) int32 tensors in the batch's job order.
+        Span ``kernel.k1`` (DIAMOND_TPU_PROF): the batch's jobs and requests,
+        the letters of the targets and the queries (``n_t``, ``n_q``), and
+        CUDA events."""
+        global dispatch_count
+        with kspan("kernel.k1", p.t_cat.device) as sp:
+            if sp:
+                sp.fields = dict(jobs=p.jobs, reqs=p.reqs,
+                                 n_t=p.t_cat.numel(), n_q=p.q_cat.numel())
+            m32 = self.matrix_on(p.t_cat.device)
+            outs = []
+            for R, lo, hi in p.classes:
+                outs.append(kernel(p.t_cat, p.q_cat, p.bias_cat,
+                                   p.jobs[lo:hi], p.reqs, m32, self.go,
+                                   self.ge, R))
+            dispatch_count += len(p.classes)
+            if not outs:
+                return tuple(torch.zeros(0, dtype=torch.int32)
+                             for _ in range(3))
+            return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
 
-    def _run_many(self, requests):
+    def run_many(self, requests):
         """Consecutive slices of at most MAX_BATCH_LETTERS letters each."""
         out = []
         lo = 0
@@ -531,32 +526,40 @@ def full_swipe(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
     pair's score to out int32 [m, nt] at (req, tgt) and returns out.
 
     CUDA tensors launch the kernel (counted in ``full_swipe.launches``); CPU
-    tensors run ``full_swipe_plain``.
+    tensors run ``full_swipe_plain``.  Span ``kernel.k2``
+    (DIAMOND_TPU_PROF): the targets, requests and pairs, the letters of the
+    targets and the queries (``n_t``, ``n_q``), and CUDA events.
     """
-    _check_sweep(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
-                 rows_per_lane, scratch, out)
-    dev = t_cat.device
-    if dev.type == "cpu":
-        return full_swipe_plain(t_cat, targets, q_cat, bias_cat, reqs, pairs,
-                                matrix32, go, ge, rows_per_lane, scratch, out)
-    if dev.type != "cuda":
-        raise ValueError(f"full_swipe runs on cuda or cpu, not {dev}")
-    n = pairs.shape[0]
-    if n == 0:
+    with kspan("kernel.k2", t_cat.device) as sp:
+        if sp:
+            sp.fields = dict(targets=targets, reqs=reqs, pairs=pairs,
+                             n_t=t_cat.numel(), n_q=q_cat.numel())
+        _check_sweep(t_cat, targets, q_cat, bias_cat, reqs, pairs, matrix32,
+                     rows_per_lane, scratch, out)
+        dev = t_cat.device
+        if dev.type == "cpu":
+            return full_swipe_plain(t_cat, targets, q_cat, bias_cat, reqs,
+                                    pairs, matrix32, go, ge, rows_per_lane,
+                                    scratch, out)
+        if dev.type != "cuda":
+            raise ValueError(f"full_swipe runs on cuda or cpu, not {dev}")
+        n = pairs.shape[0]
+        if n == 0:
+            return out
+        if t_cat.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
+            raise ValueError("full_swipe batch exceeds int32 offsets")
+        with torch.cuda.device(dev):  # the launch goes to the current device
+            err = _k2()(rows_per_lane, t_cat.data_ptr(), targets.data_ptr(),
+                        q_cat.data_ptr(), bias_cat.data_ptr(),
+                        reqs.data_ptr(), pairs.data_ptr(),
+                        matrix32.data_ptr(), n, out.shape[1], int(go),
+                        int(ge), scratch.data_ptr(), t_cat.numel(),
+                        out.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"full_swipe launch failed: CUDA error {err}")
+        full_swipe.launches += 1
         return out
-    if t_cat.numel() >= 2 ** 31 or out.numel() >= 2 ** 31:
-        raise ValueError("full_swipe batch exceeds int32 offsets")
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _k2()(rows_per_lane, t_cat.data_ptr(), targets.data_ptr(),
-                    q_cat.data_ptr(), bias_cat.data_ptr(), reqs.data_ptr(),
-                    pairs.data_ptr(), matrix32.data_ptr(), n,
-                    out.shape[1], int(go), int(ge), scratch.data_ptr(),
-                    t_cat.numel(), out.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"full_swipe launch failed: CUDA error {err}")
-    full_swipe.launches += 1
-    return out
 
 
 full_swipe.launches = 0
@@ -755,9 +758,8 @@ class FullSweep:
         (``full_swipe`` unless given) is queued before it returns, so host
         work (the long-sequence tail, result formatting) overlaps the
         card's; .wait() on the returned handle is the only blocking step."""
-        global dispatch_count, dispatch_cells, dispatch_wait_s
+        global dispatch_count
         kernel = kernel or full_swipe
-        t0 = time.perf_counter()
         with ptimer("swipe.pack"):
             b = self.pack(queries, tblock, t_order)
         dev = self.device
@@ -778,8 +780,6 @@ class FullSweep:
                        reqs, pairs, self._m32, self.go, self.ge, L.R,
                        scratch, out)
                 dispatch_count += 1
-                dispatch_cells += L.walk_cells
-        dispatch_wait_s += time.perf_counter() - t0
         return _SweepPending(out)
 
 
@@ -788,13 +788,9 @@ class _SweepPending:
         self._out = out
 
     def wait(self):
-        global dispatch_wait_s
-        t0 = time.perf_counter()
         # the readback is the only blocking step: it waits for the kernels
         with ptimer("swipe.wait_readback"):
-            res = self._out.cpu().numpy()
-        dispatch_wait_s += time.perf_counter() - t0
-        return res
+            return self._out.cpu().numpy()
 
 
 def from_pallas_full_sweep(bounds32, t_idx8, q_let8, q_bias8, q_valid8,
@@ -1033,7 +1029,7 @@ class SwipeSweep:
         """queries: [(q_letters, bias_or_None)]; targets: [t_letters].
         Every launch of ``kernel`` (``swipe_sweep`` unless given) is queued
         before the first result is read back."""
-        global dispatch_count, dispatch_cells, dispatch_wait_s
+        global dispatch_count
         kernel = kernel or swipe_sweep
         chunks = self.chunks(targets)
         res = [[None] * len(targets) for _ in queries]
@@ -1048,8 +1044,8 @@ class SwipeSweep:
                 pending.append((qi, ch, kernel(ch.t_idx, bl, prof_t, self.go,
                                                self.ge, ch.C, len(q))))
                 dispatch_count += 1
-                dispatch_cells += sweep_walk_cells(ch.T, ch.C, len(q),
-                                                   ch.tl + len(q) - 1)
+                pcount("sweep.walk_cells", sweep_walk_cells(
+                    ch.T, ch.C, len(q), ch.tl + len(q) - 1))
                 done.add(id(ch))
             for ch in chunks:  # bands past the kernel's cap: host DP
                 if id(ch) in done:
@@ -1060,7 +1056,6 @@ class SwipeSweep:
                         q, bias, jobs, self.matrix32, self.gap_open,
                         self.gap_extend)):
                     res[qi][t] = r
-        t0 = time.perf_counter()
         for qi, ch, out in pending:
             best, mc, mr = torch.stack(out).cpu().numpy().astype(np.int64)
             for x, t in enumerate(ch.rows):
@@ -1071,7 +1066,6 @@ class SwipeSweep:
                 j_true = int(mc[x]) - (ch.C - (tl - 1))
                 res[qi][t] = (int(best[x]), j_true, j_true - (tl - 1)
                               + int(mr[x]))
-        dispatch_wait_s += time.perf_counter() - t0
         return res
 
 

@@ -24,7 +24,7 @@ from diamond_tpu_torch.ops.swipe_uniform import (MAX_UNIFORM_BAND,
                                                  make_profile, pad_band,
                                                  pad_pow2, profile_rows,
                                                  uniform_shape, uniform_walk)
-from diamond_tpu_torch.utils.log import padd, perf_counter
+from diamond_tpu_torch.utils.log import ptimer
 
 # most bytes of strip carries (int2 [B][2][T]) one launch of the wide-band
 # walk takes; a larger batch goes in several launches
@@ -180,19 +180,19 @@ def uniform_scores(query, bias, matrix32, jobs, go: int, ge: int, device,
     max_row) in shifted coordinates and the packing's meta.  Phase timers:
     ``k4.pack``, ``k4.upload`` and ``k4.kernel`` (the call and the read-back
     of its outputs)."""
-    t0 = perf_counter()
-    packed, meta = pack_uniform_batch(query, bias, matrix32, jobs)
-    if meta["band"] > MAX_UNIFORM_BAND:
-        raise ValueError(f"band {meta['band']} above {MAX_UNIFORM_BAND}: "
-                         f"such jobs take the host DP")
-    t0 = padd("k4.pack", t0)
-    dev = torch.device(device)
-    x = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
-    t0 = padd("k4.upload", t0)
-    out = (kernel or banded_swipe_uniform_cuda)(
-        x["t_idx"], x["band_mask"], x["prof_t"], go, ge, rows=meta["rows"])
-    best, mc, mr = torch.stack(out).cpu().numpy().astype(np.int64)
-    padd("k4.kernel", t0)
+    with ptimer("k4.pack"):
+        packed, meta = pack_uniform_batch(query, bias, matrix32, jobs)
+        if meta["band"] > MAX_UNIFORM_BAND:
+            raise ValueError(f"band {meta['band']} above {MAX_UNIFORM_BAND}: "
+                             f"such jobs take the host DP")
+    with ptimer("k4.upload"):
+        dev = torch.device(device)
+        x = {k: torch.from_numpy(v).to(dev) for k, v in packed.items()}
+    with ptimer("k4.kernel"):
+        out = (kernel or banded_swipe_uniform_cuda)(
+            x["t_idx"], x["band_mask"], x["prof_t"], go, ge,
+            rows=meta["rows"])
+        best, mc, mr = torch.stack(out).cpu().numpy().astype(np.int64)
     return best, mc, mr, meta
 
 

@@ -42,7 +42,6 @@ run length) and payloads int32, as the native call writes them.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,6 +50,7 @@ import torch
 from diamond_tpu_torch.ops._cuda import check_tensors
 from diamond_tpu_torch.ops.swipe_device import (MAX_DEVICE_BAND,
                                                 job_fits_device)
+from diamond_tpu_torch.utils.log import kspan
 
 JOB_COLS = 7                   # q_off, q_len, use_bias, t_off, t_len, d0, band
 PLANE_BUDGET_BYTES = 1 << 30   # the card's trace planes for one slice of jobs
@@ -58,15 +58,13 @@ PLAIN_CELLS = {"cpu": 1 << 22, "cuda": 1 << 27}  # plain fill: cells a chunk
 MAX_BIAS = 1 << 25             # |bias| the kernel packs beside a letter
 GV, GH, OV, OH = range(4)      # the planes, in the kernel's order
 
-# Dispatch telemetry (always on; a few int adds per call).
+# Dispatch telemetry (always on; an int add per call).
 dispatch_count = 0      # tb_multi_device calls (either device)
-dispatch_wait_s = 0.0   # wall time inside tb_multi_device (copies included)
 
 
 def reset_dispatch_stats():
-    global dispatch_count, dispatch_wait_s
+    global dispatch_count
     dispatch_count = 0
-    dispatch_wait_s = 0.0
 
 
 def rows_per_lane(band):
@@ -263,38 +261,46 @@ def tb_launch(q_base, bias_base, t_cat, jobs, matrix32, go, ge, plan, bufs,
               out, stats):
     """The fill launches, one a band class of each slice, each warp
     walking its job after its fill; out and stats filled, ops in their
-    slots.  No sync."""
-    fill, _ = _d4()
-    stream = torch.cuda.current_stream(t_cat.device).cuda_stream
-    order = bufs["order"]
-    common = (_ptr(q_base), _ptr(bias_base), _ptr(t_cat), _ptr(jobs))
-    tail = (_ptr(matrix32), int(go), int(ge), _ptr(bufs["planes"]),
-            _ptr(bufs["plane_off"]), _ptr(bufs["slot_off"]),
-            _ptr(bufs["slot_codes"]), _ptr(bufs["slot_payload"]), _ptr(out),
-            _ptr(stats), stream)
-    for s_lo, s_hi in plan.slices:
-        for R, start, count in plan.launches:
-            if not s_lo <= start < s_hi:
-                continue
-            err = fill(R, *common, _ptr(order) + 4 * start, count, *tail)
-            if err:
-                raise RuntimeError(f"banded_traceback_multi fill launch "
-                                   f"failed: CUDA error {err}")
-            banded_traceback_multi.launches += 1
+    slots.  No sync.  Span ``kernel.d4`` (DIAMOND_TPU_PROF): the jobs, the
+    stats (column 10, the walk's ops, filled by the kernels), the letters
+    of the targets and the queries (``n_t``, ``n_q``), and CUDA events."""
+    with kspan("kernel.d4", t_cat.device) as sp:
+        if sp:
+            sp.fields = dict(jobs=jobs, stats=stats, n_t=t_cat.numel(),
+                             n_q=q_base.numel())
+        fill, _ = _d4()
+        stream = torch.cuda.current_stream(t_cat.device).cuda_stream
+        order = bufs["order"]
+        common = (_ptr(q_base), _ptr(bias_base), _ptr(t_cat), _ptr(jobs))
+        tail = (_ptr(matrix32), int(go), int(ge), _ptr(bufs["planes"]),
+                _ptr(bufs["plane_off"]), _ptr(bufs["slot_off"]),
+                _ptr(bufs["slot_codes"]), _ptr(bufs["slot_payload"]),
+                _ptr(out), _ptr(stats), stream)
+        for s_lo, s_hi in plan.slices:
+            for R, start, count in plan.launches:
+                if not s_lo <= start < s_hi:
+                    continue
+                err = fill(R, *common, _ptr(order) + 4 * start, count, *tail)
+                if err:
+                    raise RuntimeError(f"banded_traceback_multi fill launch "
+                                       f"failed: CUDA error {err}")
+                banded_traceback_multi.launches += 1
 
 
 def tb_compact(stats, bufs, op_off, codes, payload):
-    """Each job's ops from its slots to op_off, one launch.  No sync."""
-    _, compact = _d4()
-    n = stats.shape[0]
-    err = compact(n, _ptr(stats), _ptr(bufs["slot_off"]), _ptr(op_off),
-                  _ptr(bufs["slot_codes"]), _ptr(bufs["slot_payload"]),
-                  _ptr(codes), _ptr(payload),
-                  torch.cuda.current_stream(stats.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"banded_traceback_multi compaction launch "
-                           f"failed: CUDA error {err}")
-    banded_traceback_multi.launches += 1
+    """Each job's ops from its slots to op_off, one launch.  No sync.  Span
+    ``kernel.d4_compact``: CUDA events, no work counted."""
+    with kspan("kernel.d4_compact", stats.device):
+        _, compact = _d4()
+        n = stats.shape[0]
+        err = compact(n, _ptr(stats), _ptr(bufs["slot_off"]), _ptr(op_off),
+                      _ptr(bufs["slot_codes"]), _ptr(bufs["slot_payload"]),
+                      _ptr(codes), _ptr(payload),
+                      torch.cuda.current_stream(stats.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"banded_traceback_multi compaction launch "
+                               f"failed: CUDA error {err}")
+        banded_traceback_multi.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -554,45 +560,44 @@ def tb_multi_device(q_base, bias_base, q_off, q_len, use_bias, t_cat, t_off,
     ``ext.tb_card_up`` (checks, plan, uploads), ``ext.tb_card_kernel``
     (the call, its one sync included), ``ext.tb_card_back`` (the copies
     back), ``ext.tb_card_results`` (the BandedResults)."""
-    global dispatch_count, dispatch_wait_s
+    global dispatch_count
     from diamond_tpu_torch.ops.banded_swipe import results_from_tb
-    from diamond_tpu_torch.utils.log import padd
+    from diamond_tpu_torch.utils.log import ptimer
 
-    t0 = time.perf_counter()
-    dev = torch.device(device)
-    jobs = job_table(q_off, q_len, use_bias, t_off, t_len, d_begins, bands)
-    if bias_base is None or not jobs[:, 2].any():
-        jobs[:, 2] = 0
-        bias_base = np.zeros(1, np.int32)
-    bias_base = np.ascontiguousarray(bias_base, dtype=np.int32)
-    if jobs[:, 2].any():
-        used = bias_base[:int((jobs[:, 0] + jobs[:, 1]).max())]
-        if len(used) and np.abs(used).max() >= MAX_BIAS:
-            raise ValueError(f"D4 takes query biases below {MAX_BIAS}")
-    check_jobs(jobs, len(q_base), len(t_cat), len(bias_base))
-    plan = tb_plan(jobs) if dev.type == "cuda" else None
+    with ptimer("ext.tb_card_up"):
+        dev = torch.device(device)
+        jobs = job_table(q_off, q_len, use_bias, t_off, t_len, d_begins,
+                         bands)
+        if bias_base is None or not jobs[:, 2].any():
+            jobs[:, 2] = 0
+            bias_base = np.zeros(1, np.int32)
+        bias_base = np.ascontiguousarray(bias_base, dtype=np.int32)
+        if jobs[:, 2].any():
+            used = bias_base[:int((jobs[:, 0] + jobs[:, 1]).max())]
+            if len(used) and np.abs(used).max() >= MAX_BIAS:
+                raise ValueError(f"D4 takes query biases below {MAX_BIAS}")
+        check_jobs(jobs, len(q_base), len(t_cat), len(bias_base))
+        plan = tb_plan(jobs) if dev.type == "cuda" else None
 
-    def up(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+        def up(a, dt):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
 
-    x = (up(q_base, np.int8), up(bias_base, np.int32), up(t_cat, np.int8),
-         up(jobs, np.int64), up(matrix32, np.int32))
-    t1 = padd("ext.tb_card_up", t0)
-    out, stats, op_off, codes, payload = banded_traceback_multi(
-        *x, go, ge, plan=plan)
-    t1 = padd("ext.tb_card_kernel", t1)
-    if dev.type == "cuda":
-        pinned = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                  for a in (codes, payload)]
-        for h, a in zip(pinned, (codes, payload)):
-            h.copy_(a, non_blocking=True)
-        out, stats, op_off = (a.cpu() for a in (out, stats, op_off))
-        torch.cuda.current_stream(dev).synchronize()
-        codes, payload = pinned
-    r = tuple(a.numpy() for a in (out, stats, op_off, codes, payload))
-    t1 = padd("ext.tb_card_back", t1)
-    results = results_from_tb(r)
-    padd("ext.tb_card_results", t1)
+        x = (up(q_base, np.int8), up(bias_base, np.int32),
+             up(t_cat, np.int8), up(jobs, np.int64), up(matrix32, np.int32))
+    with ptimer("ext.tb_card_kernel"):
+        out, stats, op_off, codes, payload = banded_traceback_multi(
+            *x, go, ge, plan=plan)
+    with ptimer("ext.tb_card_back"):
+        if dev.type == "cuda":
+            pinned = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                      for a in (codes, payload)]
+            for h, a in zip(pinned, (codes, payload)):
+                h.copy_(a, non_blocking=True)
+            out, stats, op_off = (a.cpu() for a in (out, stats, op_off))
+            torch.cuda.current_stream(dev).synchronize()
+            codes, payload = pinned
+        r = tuple(a.numpy() for a in (out, stats, op_off, codes, payload))
+    with ptimer("ext.tb_card_results"):
+        results = results_from_tb(r)
     dispatch_count += 1
-    dispatch_wait_s += time.perf_counter() - t0
     return r[0], r[1], results

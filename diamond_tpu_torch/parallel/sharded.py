@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from diamond_tpu_torch.utils.device import resolve_device
-from diamond_tpu_torch.utils.log import padd, perf_counter
+from diamond_tpu_torch.utils.log import ptimer
 
 
 class Mesh(list):
@@ -185,11 +185,10 @@ def sharded_full_scores(mesh: Mesh, query, bias, tblock, matrix32,
         for (band, _), idx in sorted(classes.items()):
             sub = [mine[k] for k in idx]
             if band > MAX_UNIFORM_BAND:
-                t0 = perf_counter()
-                res = banded_swipe_batch_np(query, bias, sub, matrix32,
-                                            gap_open, gap_extend)
-                best = [int(np.asarray(r).flat[0]) for r in res]
-                padd("mesh.host_dp", t0)
+                with ptimer("mesh.host_dp"):
+                    res = banded_swipe_batch_np(query, bias, sub, matrix32,
+                                                gap_open, gap_extend)
+                    best = [int(np.asarray(r).flat[0]) for r in res]
             else:
                 best = uniform_scores(query, bias, matrix32, sub, go, ge,
                                       mesh[s])[0]

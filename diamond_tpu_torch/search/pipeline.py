@@ -26,6 +26,7 @@ from diamond_tpu_torch.search.left_most import PatternMatcher, left_most_filter
 from diamond_tpu_torch.search.left_most_batch import BatchPatternMatcher, left_most_filter_batch
 from diamond_tpu_torch.stats import cbs as cbs_mod
 from diamond_tpu_torch.stats.cbs import hauser_bias_i8
+from diamond_tpu_torch.utils.log import ptimer
 
 
 @dataclass
@@ -49,7 +50,7 @@ class PipelineContext:
         return self._bias_cache[query_id]
 
 
-def mask_block(block: Block, masker: Tantan, save_original: bool = True):
+def _mask_block(block: Block, masker: Tantan, save_original: bool = True):
     """Hard tantan masking in place (reference double_indexed.cpp:122-127,737-741).
 
     Idempotent across iterated-search rounds: the reference masks fresh
@@ -81,7 +82,7 @@ def mask_block(block: Block, masker: Tantan, save_original: bool = True):
         block.letters[s : s + L] = np.where(prob >= masker.p_mask, MASK_LETTER, seq)
 
 
-def mask_block_seg(block: Block):
+def _mask_block_seg(block: Block):
     """Hard NCBI-SEG masking in place (--masking seg; reference
     masking.cpp:172-193, lib/blast/blast_seg.cpp)."""
     if getattr(block, "_seg_masked", False):
@@ -96,6 +97,18 @@ def mask_block_seg(block: Block):
         L = int(block.lengths[i])
         for b, e in seg_mask_ranges(block.letters[s : s + L]):
             block.letters[s + b : s + e] = MASK_LETTER
+
+
+def mask_block(block: Block, masker: Tantan, save_original: bool = True):
+    """_mask_block under the span mask.block."""
+    with ptimer("mask.block"):
+        _mask_block(block, masker, save_original)
+
+
+def mask_block_seg(block: Block):
+    """_mask_block_seg under the span mask.seg."""
+    with ptimer("mask.seg"):
+        _mask_block_seg(block)
 
 
 def motif_mask_ranges(block: Block):
@@ -223,9 +236,10 @@ class Pipeline:
             timer.finish()
 
         # motif soft-mask ranges computed once on the masked block
-        q_motif = motif_mask_ranges(self.q) if cfg.motif_masking else []
-        t_motif = (q_motif if self.same_block else
-                   (motif_mask_ranges(self.t) if cfg.motif_masking else []))
+        with ptimer("search.motif"):
+            q_motif = motif_mask_ranges(self.q) if cfg.motif_masking else []
+            t_motif = (q_motif if self.same_block else
+                       (motif_mask_ranges(self.t) if cfg.motif_masking else []))
 
         # persistent per-position query seed mask (SEED_MASK semantics)
         self.query_seed_mask = np.zeros(len(self.q.letters), dtype=bool)
@@ -238,8 +252,6 @@ class Pipeline:
                          contexts=6 if cfg.translated else 1)
         n_parts = cfg.seedp_count
         chunk_bounds = _partition(n_parts, cfg.index_chunks)
-
-        from diamond_tpu_torch.utils.log import ptimer
 
         for sid in range(len(cfg.shapes)):
             shape = cfg.shapes[sid]
@@ -630,8 +642,8 @@ class Pipeline:
         if buf is None:
             buf = self._s12_buf = np.empty((CAP, 4), dtype=np.int64)
         outs = []
-        from diamond_tpu_torch.utils.log import _PROF
-        s12_stats = np.zeros(2, dtype=np.int64) if _PROF else None
+        from diamond_tpu_torch.utils.log import enabled
+        s12_stats = np.zeros(2, dtype=np.int64) if enabled() else None
         g0 = 0
         while g0 < n_groups:
             g1 = int(np.searchsorted(cum, cum[g0] + CAP, side="right")) - 1

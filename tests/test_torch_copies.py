@@ -27,7 +27,8 @@ ALLOWED = {
                       "DeviceDP's band cap with the port's D4 "
                       "(ops/traceback_device.tb_multi_device) on the "
                       "DeviceDP's device, the rest with the native call, "
-                      "results merged in job order", 70),
+                      "results merged in job order; each round under the "
+                      "span wave.round", 70),
     "search/pipeline.py": ("device route builds the port's DeviceDP on "
                            "the resolved device, with --mesh over the "
                            "port's make_mesh; stage 1/2 on the card hands "
@@ -38,7 +39,12 @@ ALLOWED = {
                            "expands pairs and runs self-hit, clip and "
                            "left-most on the host; _can_fork reads the "
                            "port's stage 1/2 knob; -F extends the block's "
-                           "reads in one call", 99),
+                           "reads in one call; the spans mask.block and "
+                           "mask.seg around the block masking (mask_block, "
+                           "mask_block_seg wrap the copies' bodies) and "
+                           "search.motif around the motif ranges; the "
+                           "stage-1/2 counters read the span state at each "
+                           "call", 129),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "
@@ -46,12 +52,16 @@ ALLOWED = {
                             "3-6) in order", 177),
     "align/swipe_all.py": ("_device_swipe_dispatch builds the port's "
                            "FullSweep on the resolved device; _mesh_for "
-                           "caches the port's torch-device mesh; "
-                           "DIAMOND_TPU_PROF phase timers (padd) for "
-                           "masking, the dispatch, the host tail and the "
-                           "per-query finish", 20),
-    "utils/log.py": ("padd: a phase timer for a span that is no one block",
-                     20),
+                           "caches the port's torch-device mesh; the "
+                           "blocks of swipe_all_protein under the spans "
+                           "swipe.mask, swipe.dispatch, swipe.host_tail and "
+                           "swipe.finish (indented into with-blocks)", 111),
+    "utils/log.py": ("the spans: one primitive (Span, ptimer, kspan) that "
+                     "keeps label, start, end, id, parent and request ids "
+                     "in a bounded buffer (spans()), a profiler range "
+                     "while torch.profiler records, a kernel call's work "
+                     "and CUDA events; on and off at any time (enable), "
+                     "no allocation while off", 158),
     "cluster/mcl.py": ("MCL's dense step (D3) runs as fp32 torch ops with "
                        "TF32 off on the resolved device (mcl_dense_torch, "
                        "its calls on a card counted) where the reference "
