@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the shipped source of a kernel against an older one on one CUDA card.
 
-    python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j|d4 --parent OLD.cu
+    python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j|d4|mask --parent OLD.cu
                        [--same-shape] [--rounds N] [--queries N] [--reads N]
                        [--swipe-queries N] [--seed S]
 
@@ -25,7 +25,13 @@ A, ``--rounds`` times) on the batches of the kernel's path:
       self-search with stage 1/2 on the card;
   d4  the largest traceback call of the blastp self-search (its fill
       launches, the scan and the ops' compaction on preallocated buffers,
-      no sync).
+      no sync);
+  mask tantan's scan over the benchmark's block (15,000 proteins of
+      perfbench/gen.py's frozen generator, ~5.8 M letters; each call
+      masks a fresh device copy of the letters), its bound the larger of
+      chip_smoke.MASK_OPS fp32 ops a letter and state over 132 SMs x 128
+      lanes and the longest sequence's chain (MASK_CHAIN_OPS dependent
+      ops a letter at FP32_LATENCY_CYCLES each).
 
 Each round times each variant three ways: 10 calls launched from Python
 between two events (the per-call time of chip_smoke.py's rows), 10 calls
@@ -62,7 +68,7 @@ import numpy as np
 
 SOURCES = {"k1": "banded_swipe", "k2": "full_swipe", "k3": "swipe3",
            "k4": "uniform_swipe", "k6": "stage2", "d1j": "stage12_join",
-           "d4": "banded_traceback"}
+           "d4": "banded_traceback", "mask": "tantan"}
 # each kernel's C entry points and their argument types (launcher letters)
 SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
            "k2": [("full_swipe_launch", "ipppppppiiiipipp")],
@@ -73,12 +79,14 @@ SYMBOLS = {"k1": [("banded_swipe_multi_launch", "ippppppiiipppp")],
                     "ppppppiippppppppipiiqpipiiiqpiiiiippp"),
                    ("stage12_join_rows", "pppiippppppp")],
            "d4": [("tb_fill_launch", "ipppppipiipppppppp"),
-                  ("tb_compact_launch", "ipppppppp")]}
+                  ("tb_compact_launch", "ipppppppp")],
+           "mask": [("tantan_mask_launch", "ppppippppppffffip")]}
 # an older source's entry points where they differ from the shipped ones:
 # K4 before its wide-band walk (a CTA per target above 512 rows) took no
 # scratch and no profile rows
 PARENT_SYMBOLS = {"k4": [("uniform_swipe_mask_launch", "iipppiiiiipppp")]}
-ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64}
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64,
+             "f": ctypes.c_float}
 
 
 def parent_k4_shape(band: int):
@@ -619,6 +627,52 @@ def d4_case(args, cs, torch, m):
              ops / cells, n_bytes, make_call)]
 
 
+def mask_case(args, cs, torch, m):
+    """tantan's scan over the benchmark's block."""
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.masking.tantan import Tantan
+    from diamond_tpu_torch.ops import tantan_device as td
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "perfbench"))
+    import gen
+
+    recs = gen.make_proteins(15_000, 3_750, seed=args.seed, size_seed=2500)
+    blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    params = td.scan_params(Tantan(m.matrix32))
+    lens = blk.lengths.astype(np.int64)
+    orig = torch.from_numpy(blk.letters).cuda()
+    st, ln = torch.from_numpy(blk.starts).cuda(), torch.from_numpy(lens).cuda()
+    n_let, longest = int(lens.sum()), int(lens.max())
+    n_bytes = 2 * len(blk.letters) + 16 * len(blk) + 4 * (32 * 32 + 50)
+    k_mask = td._kernel
+    o, so = td.launch_plan(lens)[:2]
+    plan = (torch.from_numpy(o).cuda(), torch.from_numpy(so).cuda(), longest,
+            n_let)
+
+    def make_call(fn, parent=False):
+        x = torch.empty_like(orig)
+
+        def call():
+            x.copy_(orig)
+            td._kernel = lambda: fn
+            try:
+                td.tantan_mask(x, st, ln, params, plan=plan)
+            finally:
+                td._kernel = k_mask
+
+        call()
+        return call, [x], [(len(blk), n_let)]
+
+    clock_hz = float(cs.smi("clocks.max.sm").split()[0]) * 1e6
+    make_call.chain_ms = (longest * cs.MASK_CHAIN_OPS
+                          * cs.FP32_LATENCY_CYCLES / clock_hz * 1e3)
+    print(f"mask block: {len(blk)} sequences, {n_let} letters (longest "
+          f"{longest}); chain bound {make_call.chain_ms:.5f} ms")
+    return [(f"tantan over the benchmark's block ({len(blk)} sequences)",
+             n_let * td.WINDOW, cs.MASK_OPS, n_bytes, make_call)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
@@ -649,19 +703,25 @@ def main(argv=None):
     print(name_power)
     print(f"kernel {args.kernel}: csrc/{SOURCES[args.kernel]}.cu against "
           f"{args.parent}; max SM clock {clock_mhz:.0f} MHz")
-    lanes_per_s = cs.H100_SMS * cs.INT32_LANES_PER_SM * clock_mhz * 1e6
+    lanes_per_s = cs.H100_SMS * (
+        cs.FP32_LANES_PER_SM if args.kernel == "mask"
+        else cs.INT32_LANES_PER_SM) * clock_mhz * 1e6
     m = ScoreMatrix("BLOSUM62")
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(args.kernel, args.parent, tmp, args.same_shape)
         cases = {"k1": k1_case, "k2": k2_case, "k3": k3_case, "k4": k4_case,
                  "k6": k6_case, "d1j": d1j_case,
-                 "d4": d4_case}[args.kernel](args, cs, torch, m)
+                 "d4": d4_case, "mask": mask_case}[args.kernel](
+                     args, cs, torch, m)
         for label, cells, ops, n_bytes, make_call, *pre in cases:
             bound_ms = max(cells * ops / lanes_per_s,
                            n_bytes / cs.HBM_BYTES_PER_S) * 1e3
             by = ("operations" if cells * ops / lanes_per_s
                   >= n_bytes / cs.HBM_BYTES_PER_S else "bytes")
-            print(f"{label}: {cells} cells x {ops} int32 ops, {n_bytes} "
+            if getattr(make_call, "chain_ms", 0.0) > bound_ms:
+                bound_ms, by = make_call.chain_ms, "the longest chain"
+            kind_ops = "fp32" if args.kernel == "mask" else "int32"
+            print(f"{label}: {cells} cells x {ops} {kind_ops} ops, {n_bytes} "
                   f"bytes, bound {bound_ms:.5f} ms ({by})" + "".join(
                       f"; at {p} ops before DPX "
                       f"{cells * p / lanes_per_s * 1e3:.5f} ms" for p in pre))

@@ -8,15 +8,14 @@
                           [--global-queries N] [--cluster-seqs N]
                           [--linclust-seqs N] [--deepclust-seqs N]
                           [--mcl-small N] [--blastn-reads N]
-                          [--coord-queries N] [--seed S]
+                          [--coord-queries N] [--seed S] [--mask-only]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
      full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu,
-     stage12.cu, stage12_join.cu, banded_traceback.cu; one nvcc per
-     source, all at once, for
-     sm_90a; registers
+     stage12.cu, stage12_join.cu, banded_traceback.cu, tantan.cu; one
+     nvcc per source, all at once, for sm_90a; registers
      and spills from ptxas) and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
      the host DP (exact int32, 0 mismatches required): the banded SWIPE
@@ -74,7 +73,9 @@ Phases; each one fails the run on error:
      refill every job within its band cap there (ext.tb_multi,
      ext.tb_card and its jobs and cells, K1's ext.device_dp, the host
      route's ext.score_multi, failed walks on both routes, D4's jobs
-     starting below -(t_len - 1), peak card memory);
+     starting below -(t_len - 1), peak card memory); tantan_mask must
+     launch twice on both routes (the DB block and the query block: the
+     masking runs on the card whatever the DP route);
   5. blastx --long-reads: seeded 2-8 kb reads back-translated from that set
      (~1 indel per kb) against it; >= 95 % must hit their source protein;
   6. blastx: default six-frame search of 500 seeded 300-1500 nt reads
@@ -90,7 +91,7 @@ Phases; each one fails the run on error:
      ``makedb`` of the protein set and ``dbinfo`` of the result, timed;
   8. the search drivers and the clustering commands, each on the card
      route and on the host route (equal outputs; K1 launched on the card
-     route, none on the host route), each Pipeline's sensitivity, queries,
+     route, no DP kernel on the host route), each Pipeline's sensitivity, queries,
      K1 jobs and seconds printed: ``blastp -b`` of the whole set against
      itself at 1/4.5 of its letters a block (5 x 5 blocks; the card's peak
      memory; whether it equals the unblocked output), the same from a
@@ -131,7 +132,12 @@ Phases; each one fails the run on error:
      blastp's largest traceback call (per call, kernel only: its
      launches, the scan and the compaction; against its plain version
      and the native host call; the bound from D4_OPS a cell and
-     D4_WALK_OPS a walk op, the planes written and read); D3 on
+     D4_WALK_OPS a walk op, the planes written and read); tantan's scan
+     at the benchmark's block (mask_entry: against the native host scan
+     and its plain version, bit for bit; per call, kernel only, the card
+     route of _mask_block and the native scan, against the larger of
+     MASK_OPS a letter and state over the fp32 rate and the longest
+     sequence's chain of MASK_CHAIN_OPS dependent ops a letter); D3 on
      the MCL run's matrices against the same torch ops on the CPU and the
      numpy loop (equal cluster assignments), timed on the largest against
      2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
@@ -154,6 +160,7 @@ Phases; each one fails the run on error:
      runs of ``blastp --mesh N`` at 2,000 queries, one rank (NCCL) and two
      ranks sharing the card (Gloo), each rank's output equal to one
      process's, and ``parallel.dist_worker`` with two ranks on the card;
+``--mask-only`` runs phase 1, builds tantan.cu and runs mask_entry alone.
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -1765,6 +1772,154 @@ MCL_FAMILIES = (130, 150, 180, 220)
 FP32_LANES_PER_SM = 128
 
 
+# tantan's scan on the card (csrc/tantan.cu): fp32 operations a letter and
+# state over both passes, and the dependent ones a letter of the longest
+# sequence (its serial chain), each FP32_LATENCY_CYCLES long
+MASK_OPS = 10
+MASK_NOTE = ("forward f * f2f, b * d, their sum, times e, the state's add "
+             "into the 50-state sum; backward f * e, times d, the add into "
+             "the sum, fe * f2f, plus p_repeat_end * b; no FMA")
+MASK_CHAIN_OPS = 15
+MASK_CHAIN_NOTE = ("each pass 15 dependent ops every two positions: the "
+                   "50-state sum's depth 10 (5 accumulator adds, 3 tree "
+                   "levels, a[48], a[49]), b's 2, f's 2-3")
+FP32_LATENCY_CYCLES = 4
+
+
+def mask_entry(seed: int, sm_clock_mhz: float, kind: str, name_power: str):
+    """tantan on the card at the benchmark's block (perfbench/gen.py's
+    frozen generator: 15,000 proteins, 3,750 families, size_seed 2500, the
+    letters from ``seed``): the kernel against the native host scan (bit-
+    equal probabilities, byte-equal letters, padding untouched) and its
+    plain version on the card; timed per call (the wrapper on letters
+    already on the card, a fresh copy of them each call), kernel only (a
+    CUDA graph of the same), the whole card route of _mask_block
+    (tantan_device.mask_letters: staging, upload, kernel, the masked
+    positions back) on the block and on 8 of its proteins, the plain
+    version once and the native host scan; bound the larger of the
+    operations over the fp32 rate, the longest chain's latency and the
+    bytes.  Returns ((ms, plain_ms, bound_ms, bound_by, kernel_only_ms),
+    the largest difference from the native scan: of the probabilities' int32
+    bits, of the letters, of the plain version's bits)."""
+    import torch
+
+    from diamond_tpu_torch import native
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.masking.tantan import Tantan
+    from diamond_tpu_torch.ops import tantan_device as td
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "perfbench"))
+    try:
+        import gen
+    finally:
+        sys.path.remove(os.path.join(here, "perfbench"))
+    recs = gen.make_proteins(15_000, 3_750, seed=seed, size_seed=2500)
+    blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    masker = Tantan(ScoreMatrix("BLOSUM62").matrix32)
+    params = td.scan_params(masker)
+    lens = blk.lengths.astype(np.int64)
+    n_let, longest = int(lens.sum()), int(lens.max())
+    args = (blk.letters, blk.starts, lens, masker.ratios,
+            float(masker.p_repeat), float(masker.p_repeat_end),
+            float(masker.repeat_growth))
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = native.tantan_repeat_prob_many(*args)
+        host_s.append(time.perf_counter() - t0)
+    ref = blk.letters.copy()
+    np.copyto(ref, 23, where=want >= masker.p_mask)
+    orig = torch.from_numpy(blk.letters).cuda()
+    st, ln = torch.from_numpy(blk.starts).cuda(), torch.from_numpy(lens).cuda()
+    x = orig.clone()
+    probs = torch.full(x.shape, -1.0, device="cuda")
+    td.tantan_mask(x, st, ln, params, probs=probs)
+    torch.cuda.synchronize()
+    got = probs.cpu().numpy()
+    inside = np.zeros(len(blk.letters), bool)
+    for s0, n in zip(blk.starts, lens):
+        inside[s0:s0 + n] = True
+    bits = np.abs(got.view(np.int32)[inside].astype(np.int64)
+                  - want.view(np.int32)[inside])
+    p_mis = int((bits != 0).sum())
+    pad_written = int((got[~inside] != -1.0).sum())
+    l_diff = np.abs(x.cpu().numpy().astype(np.int64) - ref)
+    l_mis = int((l_diff != 0).sum())
+    t0 = time.perf_counter()
+    plain = td.tantan_prob_torch(orig, st, ln, params)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_bits = np.abs(plain.cpu().numpy().view(np.int32).astype(np.int64)
+                        - want.view(np.int32))
+    plain_mis = int((plain_bits != 0).sum())
+    max_err = int(max(bits.max(initial=0), l_diff.max(initial=0),
+                      plain_bits.max(initial=0)))
+    n_masked = int((ref != blk.letters).sum())
+    print(f"mask block: {len(blk)} sequences, {n_let} letters in "
+          f"{len(blk.letters)} (longest {longest}); {n_masked} "
+          f"masked; kernel against the native scan: {p_mis} probabilities "
+          f"and {l_mis} letters differ, {pad_written} padding positions "
+          f"written; plain version on the card: {plain_mis} differ")
+    if p_mis or l_mis or pad_written or plain_mis:
+        raise RuntimeError("tantan's kernel disagrees with the native scan")
+
+    o, so = td.launch_plan(lens)[:2]
+    plan = (torch.from_numpy(o).cuda(), torch.from_numpy(so).cuda(), longest,
+            n_let)
+
+    def call():
+        x.copy_(orig)
+        td.tantan_mask(x, st, ln, params, plan=plan)
+
+    call()
+    ms = cuda_ms(call, 10)
+    only_ms = graph_ms(call, 10)
+    route_s = []
+    for _ in range(5):
+        host = blk.letters.copy()
+        t0 = time.perf_counter()
+        td.mask_letters(host, blk.starts, blk.lengths, masker, "cuda")
+        route_s.append(time.perf_counter() - t0)
+        if not np.array_equal(host, ref):
+            raise RuntimeError("mask_letters disagrees with the native scan")
+    small = Block.from_sequences([s for _, s in recs[:8]],
+                                 [i for i, _ in recs[:8]])
+    small_s = []
+    for _ in range(5):
+        host = small.letters.copy()
+        t0 = time.perf_counter()
+        td.mask_letters(host, small.starts, small.lengths, masker, "cuda")
+        small_s.append(time.perf_counter() - t0)
+    print(f"mask: a block of 8 of them ({int(small.lengths.sum())} letters, "
+          f"longest {int(small.lengths.max())}) through mask_letters: "
+          f"{' '.join(f'{t * 1e3:.3f}' for t in small_s)} ms")
+    clock = sm_clock_mhz * 1e6
+    ops_s = n_let * td.WINDOW * MASK_OPS / (H100_SMS * FP32_LANES_PER_SM
+                                             * clock)
+    chain_s = longest * MASK_CHAIN_OPS * FP32_LATENCY_CYCLES / clock
+    n_bytes = 2 * len(blk.letters) + 16 * len(blk) + 4 * (32 * 32 + 50)
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    bound_s = max(ops_s, chain_s, bytes_s)
+    bound_by = ("operations" if bound_s == ops_s else
+                "the longest chain" if bound_s == chain_s else "bytes")
+    print(f"mask: {n_let} letters x {td.WINDOW} states x {MASK_OPS} fp32 "
+          f"ops ({MASK_NOTE}): {ops_s * 1e3:.5f} ms; longest chain {longest} "
+          f"letters x {MASK_CHAIN_OPS} dependent ops ({MASK_CHAIN_NOTE}) x "
+          f"{FP32_LATENCY_CYCLES} cycles: {chain_s * 1e3:.5f} ms; {n_bytes} "
+          f"bytes: {bytes_s * 1e3:.5f} ms; bound {bound_s * 1e3:.5f} ms "
+          f"({bound_by})")
+    print(f"mask: kernel {ms:.4f} ms per call (a 5.8 MB device copy of the "
+          f"letters in each), {only_ms:.4f} ms kernel only (CUDA graph), "
+          f"{ms / (bound_s * 1e3):.1f}x the bound; plain {plain_ms:.1f} ms; "
+          f"the card route of _mask_block (mask_letters) "
+          f"{' '.join(f'{t * 1e3:.2f}' for t in route_s)} ms; the native "
+          f"host scan {' '.join(f'{t * 1e3:.1f}' for t in host_s)} ms; "
+          f"{kind}, {name_power}")
+    return (ms, plain_ms, bound_s * 1e3, bound_by, only_ms), max_err
+
+
 def cli_worker(argv) -> int:
     """One CLI run in a process of its own (a --multiprocessing worker),
     DeviceDP's launches timed with CUDA events; its last line of standard
@@ -1967,6 +2122,10 @@ def main(argv=None):
     ap.add_argument("--coord-queries", type=int, default=2_000,
                     help="queries of the --coordinator runs")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mask-only", action="store_true",
+                    help="only tantan's scan on the card (build, parity "
+                         "against the native scan, timing) at the "
+                         "benchmark's block")
     args = ap.parse_args(argv)
 
     import torch
@@ -1992,6 +2151,26 @@ def main(argv=None):
         return (max(ops_s, bytes_s) * 1e3,
                 "operations" if ops_s >= bytes_s else "bytes")
 
+    if args.mask_only:
+        from diamond_tpu_torch.ops import _cuda
+        from diamond_tpu_torch.ops import tantan_device as td
+
+        phase("build")
+        t0 = time.perf_counter()
+        td._kernel()
+        print(f"nvcc tantan.cu: {time.perf_counter() - t0:.2f} s")
+        for line in _cuda.build_log.get("tantan", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas tantan:", line.strip())
+        phase("tantan's scan on the card")
+        row, err = mask_entry(args.seed, sm_clock_mhz, kind, name_power)
+        print(json.dumps({"kernels": [dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_only_ms"),
+            row), name="tantan_mask", launches=td.tantan_mask.launches,
+            max_abs_err=err)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
     # profiler counters (jobs and cells per DP route) must be on before
     # the port's log module is imported
     os.environ["DIAMOND_TPU_PROF"] = "1"
@@ -2011,6 +2190,7 @@ def main(argv=None):
     from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
     from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.ops import tantan_device as tmd
     from diamond_tpu_torch.ops import traceback_device as tbd
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
@@ -2020,7 +2200,7 @@ def main(argv=None):
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
                "swipe_sweep", "stage2", "stage12", "stage12_join",
-               "banded_traceback")
+               "banded_traceback", "tantan")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -2502,7 +2682,7 @@ def main(argv=None):
                     k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
                     k5=sd.swipe_sweep, k6=s2.stage2_filter,
                     d1=d1m.stage12_pairs, d1j=d1m.stage12_join,
-                    d4=tbd.banded_traceback_multi)
+                    d4=tbd.banded_traceback_multi, mask=tmd.tantan_mask)
 
     def zero_counts():
         for fn in wrappers.values():
@@ -2511,6 +2691,11 @@ def main(argv=None):
 
     def launch_counts():
         return {k: fn.launches for k, fn in wrappers.items()}
+
+    def dp_launched(counts):
+        """Whether a run launched a DP kernel: the masking kernel launches
+        wherever the device is a card, on the host DP route too."""
+        return any(v for k, v in counts.items() if k != "mask")
 
     events = []           # CUDA events around every kernel launch of a run
     captured = {}         # the largest batch of each kernel, for timing
@@ -2759,7 +2944,7 @@ def main(argv=None):
             raise RuntimeError(f"{name}: card-DP and host-DP outputs differ")
         if kernel and card["launches"][kernel] == 0:
             raise RuntimeError(f"{name}: the path never launched {kernel}")
-        if any(host["launches"].values()):
+        if dp_launched(host["launches"]):
             raise RuntimeError(f"{name}: the host route launched a kernel")
         if card["launches"]["d1"] or card["launches"]["d1j"]:
             raise RuntimeError(f"{name}: stage 1/2 went to the card unasked")
@@ -2801,7 +2986,13 @@ def main(argv=None):
         print(f"blastp: self hits {len(selfs)}/{n_q}")
         if len(selfs) != n_q:
             raise RuntimeError("a query did not find itself")
-        paths["k1"] = paths["d4"] = out["card"][0]
+        paths["k1"] = paths["d4"] = paths["mask"] = out["card"][0]
+        masks = [out[r][0]["launches"]["mask"] for r in ("card", "host")]
+        print(f"blastp: tantan_mask launches (card route, host route) "
+              f"{masks}")
+        if masks != [2, 2]:  # the DB block and the query block
+            raise RuntimeError("blastp did not mask its two blocks on the "
+                               "card")
         k1_batch = captured["k1"]  # K1 is timed on blastp's largest batch
         d4_call = captured["d4"]   # and D4 on its largest traceback call
         card, host = out["card"][0], out["host"][0]
@@ -3070,7 +3261,7 @@ def main(argv=None):
                                       cl_out],
                           os.path.join(tmp, "realign.out"), host=False)
         report("realign", res, n_cl, "sequences")
-        if res["lines"] != n_cl or any(res["launches"].values()):
+        if res["lines"] != n_cl or dp_launched(res["launches"]):
             raise RuntimeError("realign: a line per member, host code only")
         n_lc = min(args.linclust_seqs, len(recs))
         res, data = drive("linclust", ["linclust", "-d",
@@ -3079,7 +3270,7 @@ def main(argv=None):
         report("linclust", res, n_lc, "sequences")
         print(f"linclust: {len({ln.split(chr(9))[0] for ln in data.decode().splitlines()})}"
               f" clusters of {n_lc} sequences")
-        if res["lines"] != n_lc or any(res["launches"].values()):
+        if res["lines"] != n_lc or dp_launched(res["launches"]):
             raise RuntimeError("linclust: a line per sequence, host code "
                                "only")
 
@@ -3130,7 +3321,7 @@ def main(argv=None):
             raise RuntimeError("cluster-mcl: card-DP and host-DP outputs "
                                "differ")
         n_big = sum(s >= pmcl.JAX_MIN_COMPONENT for s in MCL_FAMILIES)
-        if not card["launches"]["k1"] or any(host["launches"].values()):
+        if not card["launches"]["k1"] or dp_launched(host["launches"]):
             raise RuntimeError("cluster-mcl: K1 on the card route only")
         if card["d3"][0] < n_big or host["d3"][0] < n_big:
             raise RuntimeError(f"cluster-mcl: D3 launched fewer than "
@@ -3269,7 +3460,7 @@ def main(argv=None):
                 if data != b"Self test OK.\n" or counts["k1"] == 0:
                     raise RuntimeError("test failed or never launched K1")
                 paths["test"] = dict(launches=counts)
-            elif any(counts.values()):
+            elif dp_launched(counts):
                 raise RuntimeError(f"{name} launched a kernel")
 
         phase("blastn (host DP with traceback, as in the reference)")
@@ -3294,7 +3485,7 @@ def main(argv=None):
         if len(hit) < 0.95 * len(dna_reads):
             raise RuntimeError("fewer than 95% of the DNA reads hit their "
                                "source on the right strand")
-        if any(res["launches"].values()):
+        if dp_launched(res["launches"]):
             raise RuntimeError("blastn launched a kernel: its DP is host code")
 
         phase("blastp --mesh 1 (the sharded DeviceDP, K1)")
@@ -3951,6 +4142,12 @@ def main(argv=None):
           f"{d4_fill} cells walked by the fill's warps; {kind}, "
           f"{name_power}")
 
+    # tantan's scan at the benchmark's block; its launches are the blastp
+    # self-search's (its two blocks)
+    row, max_err["mask"] = mask_entry(args.seed, sm_clock_mhz, kind,
+                                      name_power)
+    rows.append(("mask", row))
+
     # D3, MCL's dense step, on the matrices of the MCL run's card route: on
     # the card against the same torch ops on the CPU and the numpy loop
     phase("D3 parity and timing (MCL's dense step, torch ops)")
@@ -4051,6 +4248,10 @@ def main(argv=None):
                "diamond_tpu/native/src/banded_swipe.cc:369 "
                "(banded_swipe_tb_multi, host C++ of the traceback round, "
                "diamond_tpu/align/wave.py:135 _tb_multi)", "d4"),
+        "mask": ("tantan_mask", "diamond_tpu_torch/csrc/tantan.cu",
+                 "none: the host C++ scan tantan_repeat_prob_many of both "
+                 "packages (native/src/tantan.cc:52-157), from "
+                 "search/pipeline._mask_block", "mask"),
         # torch ops (fp32 matmul with TF32 off), not a hand-written kernel:
         # the reference computes this step with XLA outside any Pallas kernel
         "d3": ("mcl_dense_torch", "diamond_tpu_torch/cluster/mcl.py",

@@ -103,8 +103,9 @@ def launcher(name: str, symbol: str, args: str):
     """The C entry point ``symbol`` of ``csrc/<name>.cu`` returning a CUDA
     error code, its arguments typed by ``args``: one letter per argument,
     ``p`` a pointer (device pointers and the stream), ``i`` an int, ``q``
-    an unsigned 64-bit int."""
-    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64}
+    an unsigned 64-bit int, ``f`` a float."""
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_uint64,
+             "f": ctypes.c_float}
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
         fn.argtypes = [types[a] for a in args]

@@ -50,19 +50,38 @@ class PipelineContext:
         return self._bias_cache[query_id]
 
 
-def _mask_block(block: Block, masker: Tantan, save_original: bool = True):
+def _mask_block(block: Block, masker: Tantan, save_original: bool = True,
+                device: str | None = None):
     """Hard tantan masking in place (reference double_indexed.cpp:122-127,737-741).
 
     Idempotent across iterated-search rounds: the reference masks fresh
     letters once per block load; re-masking already-masked letters would
     diverge.  save_original=False skips the unmasked copy (only query
-    blocks are ever read back unmasked — DAA output, data/daa.py)."""
+    blocks are ever read back unmasked — DAA output, data/daa.py).
+    On a CUDA device the scan runs there (ops/tantan_device), the same bits
+    as the native scan; counted in mask.card_letters / mask.host_letters."""
     if getattr(block, "_tantan_masked", False):
         return
     block._tantan_masked = True
-    if save_original and block.unmasked is None:
-        block.save_unmasked()
+    save = (block.save_unmasked if save_original and block.unmasked is None
+            else None)
     from diamond_tpu_torch import native
+    from diamond_tpu_torch.utils.device import resolve_device
+    from diamond_tpu_torch.utils.log import pcount
+
+    dev = resolve_device(device)
+    n_letters = int(block.lengths.sum())
+    if dev != "cpu":
+        from diamond_tpu_torch.ops.tantan_device import mask_letters
+
+        # the unmasked copy is taken while the card masks
+        mask_letters(block.letters, block.starts, block.lengths, masker, dev,
+                     overlap=save)
+        pcount("mask.card_letters", n_letters)
+        return
+    if save is not None:
+        save()
+    pcount("mask.host_letters", n_letters)
 
     probs = native.tantan_repeat_prob_many(
         block.letters, block.starts, block.lengths, masker.ratios,
@@ -99,10 +118,11 @@ def _mask_block_seg(block: Block):
             block.letters[s + b : s + e] = MASK_LETTER
 
 
-def mask_block(block: Block, masker: Tantan, save_original: bool = True):
+def mask_block(block: Block, masker: Tantan, save_original: bool = True,
+               device: str | None = None):
     """_mask_block under the span mask.block."""
     with ptimer("mask.block"):
-        _mask_block(block, masker, save_original)
+        _mask_block(block, masker, save_original, device)
 
 
 def mask_block_seg(block: Block):
@@ -224,9 +244,10 @@ class Pipeline:
         if cfg.masking == "tantan":
             timer.go("Masking sequences")
             masker = Tantan(cfg.matrix.matrix32)
-            mask_block(self.t, masker, save_original=self.same_block)
+            mask_block(self.t, masker, save_original=self.same_block,
+                       device=self.device)
             if not self.same_block:
-                mask_block(self.q, masker)
+                mask_block(self.q, masker, device=self.device)
             timer.finish()
         elif cfg.masking == "seg":
             # --masking seg: SEG on the TARGET only, queries unmasked

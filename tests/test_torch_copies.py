@@ -44,7 +44,14 @@ ALLOWED = {
                            "mask_block_seg wrap the copies' bodies) and "
                            "search.motif around the motif ranges; the "
                            "stage-1/2 counters read the span state at each "
-                           "call", 129),
+                           "call; on a CUDA device _mask_block masks "
+                           "through the port's tantan kernel "
+                           "(ops/tantan_device.mask_letters, the same bits "
+                           "as the native scan), the device taken from "
+                           "mask_block's argument (Pipeline passes its own) "
+                           "or resolved, the unmasked copy taken while "
+                           "the card masks, its letters counted in "
+                           "mask.card_letters / mask.host_letters", 160),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "

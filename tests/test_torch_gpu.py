@@ -10,7 +10,8 @@ score), the stage-2 filter (K6, also on pair counts of no multiple of
 16, zero-width windows and hamming_id at the edge), the stage-1/2 pair
 filter (D1) and D1's whole fused pass over seed joins (stage12_join, also
 against the native host pass, whole and in chunks) and the traceback
-refill (D4, its planes too) against their plain PyTorch versions on the
+refill (D4, its planes too) and tantan's scan (the masking, against the
+native host scan too) against their plain PyTorch versions on the
 same card tensors and against the host DP or a numpy oracle; exact
 integer equality.  MCL's dense step (D3, torch ops)
 on a 512-node component against the same ops on the CPU and the numpy
@@ -708,3 +709,87 @@ def test_banded_traceback_kernel_matches_plain_and_native_on_gpu():
         nat, orc, low, _ = cs.tb_check(c, r, m.matrix32, m.gap_open,
                                        m.gap_extend)
         assert (nat, orc) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_tantan_mask_kernel_matches_native_on_gpu(monkeypatch):
+    """tantan's scan on the card (csrc/tantan.cu) against the port's native
+    host scan (held bit-equal to diamond_tpu's by
+    tests/test_torch_tantan_device.py, on the CPU: diamond_tpu does not run
+    on the card) on the benchmark's block (15,000 proteins of the frozen generator,
+    ~5.8 M letters): bit-equal probabilities, byte-equal letters, the
+    padding untouched, one launch; then the edge cases of the CPU tests
+    (lengths around 16 and 50 and 3,000, letters with high bits, positions
+    one ulp either side of p_mask) against the native scan and the plain
+    version on the card; and a CUDA _mask_block through the kernel, counted
+    in mask.card_letters, under a kernel.mask span inside mask.block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    sys.path.insert(0, os.path.join(REPO, "perfbench"))
+    try:
+        import gen
+        import test_torch_tantan_device as cpu_case
+    finally:
+        sys.path.remove(os.path.join(REPO, "perfbench"))
+        sys.path.remove(os.path.join(REPO, "tests"))
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.ops import tantan_device as td
+    from diamond_tpu_torch.search import pipeline
+    from diamond_tpu_torch.utils import log
+
+    masker, params = cpu_case.MASKER, td.scan_params(cpu_case.MASKER)
+    recs = gen.make_proteins(15_000, 3_750, seed=29, size_seed=2500)
+    blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    edge = cpu_case._padded(cpu_case.CASES["mixed"], np.random.default_rng(5),
+                            high_bits=True)
+    for letters, starts, lens in ((blk.letters, blk.starts,
+                                   blk.lengths.astype(np.int64)), edge):
+        want = cpu_case._native(letters, starts, lens)
+        ref = letters.copy()
+        np.copyto(ref, 23, where=want >= masker.p_mask)
+        x = torch.from_numpy(letters).cuda()
+        st, ln = torch.from_numpy(starts).cuda(), torch.from_numpy(lens).cuda()
+        probs = torch.full(x.shape, -1.0, device="cuda")
+        launches = td.tantan_mask.launches
+        td.tantan_mask(x, st, ln, params, probs=probs)
+        torch.cuda.synchronize()
+        assert td.tantan_mask.launches == launches + 1
+        got = probs.cpu().numpy()
+        inside = np.zeros(len(letters), bool)
+        for s0, n in zip(starts, lens):
+            inside[s0:s0 + n] = True
+        assert np.array_equal(got.view(np.int32)[inside],
+                              want.view(np.int32)[inside])
+        assert (got[~inside] == -1.0).all()  # written inside only
+        assert np.array_equal(x.cpu().numpy(), ref)
+        plain = td.tantan_prob_torch(torch.from_numpy(letters).cuda(), st, ln,
+                                     params).cpu().numpy()
+        assert np.array_equal(plain.view(np.int32), want.view(np.int32))
+
+    monkeypatch.delenv("DIAMOND_TPU_TORCH_DEVICE", raising=False)
+    was = log.enabled()
+    log.enable(True)
+    try:
+        card = Block.from_sequences([s for _, s in recs[:2000]],
+                                    [i for i, _ in recs[:2000]])
+        host_letters = card.letters.copy()
+        p = cpu_case._native(host_letters, card.starts, card.lengths)
+        np.copyto(host_letters, 23, where=p >= masker.p_mask)
+        n = int(card.lengths.sum())
+        c0 = log.prof_calls["mask.card_letters"]
+        h0 = log.prof_calls["mask.host_letters"]
+        launches = td.tantan_mask.launches
+        pipeline.mask_block(card, masker)
+        spans = log.spans(prefix="")
+    finally:
+        log.enable(was)
+    assert np.array_equal(card.letters, host_letters)
+    assert td.tantan_mask.launches == launches + 1
+    assert log.prof_calls["mask.card_letters"] - c0 == n
+    assert log.prof_calls["mask.host_letters"] == h0
+    outer = [s for s in spans if s.label == "mask.block"][-1]
+    inner = [s for s in spans if s.label == "kernel.mask"][-1]
+    assert inner.parent == outer.id
+    assert inner.fields == dict(letters=n, sequences=len(card),
+                                longest=int(card.lengths.max()), states=50)

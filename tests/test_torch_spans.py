@@ -214,6 +214,9 @@ def test_padd_labels_still_reach_prof(spans_on, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("route", ["default", "swipe"])
 def test_mask_block_on_both_routes(spans_on, tmp_path, route):
+    """mask.block on both blastp routes; on the CPU the native scan masks,
+    so no kernel.mask span (inside mask.block on a card:
+    tests/test_torch_gpu.py::test_tantan_mask_kernel_matches_native_on_gpu)."""
     got, rc = _blastp(tmp_path, *(["--swipe"] if route == "swipe" else []))
     assert rc == 0
     by_id = {s.id: s for s in got}
@@ -221,6 +224,7 @@ def test_mask_block_on_both_routes(spans_on, tmp_path, route):
     assert len(masks) == 2  # the DB and the queries
     want = "swipe.mask" if route == "swipe" else "cli.request"
     assert all(by_id[s.parent].label == want for s in masks)
+    assert not [s for s in got if s.label == "kernel.mask"]
 
 
 def _kernels():

@@ -11,6 +11,9 @@ traced window:
   (``kernel.k1``, ``kernel.d4`` with ``kernel.d4_compact``, ``kernel.k2``:
   the work under named fields, a CUDA event pair) next to the harness's,
   which wraps the same calls from outside;
+- every kernel span's calls and CUDA-event time (``kernel.mask`` too);
+- the program's counters of the traced window (``mask.card_letters``,
+  ``mask.host_letters``, ...);
 - the queries per second of the untraced window (spans on, no profiler)
   and of the traced one.
 
@@ -105,6 +108,16 @@ def span_rooflines(spans):
     return out
 
 
+def kernel_spans(spans):
+    """kernel span label -> (calls, summed CUDA-event ms)."""
+    out = defaultdict(lambda: [0, 0.0])
+    for s in spans:
+        if s.label.startswith("kernel.") and s.events is not None:
+            out[s.label][0] += 1
+            out[s.label][1] += s.ms()
+    return dict(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -172,7 +185,8 @@ def main(argv=None):
                 for k, v in sorted(st.items(), key=lambda kv: -kv[1][1])},
         request_gaps=[[a, b, s / w] for (a, b), s in
                       sorted(gaps.items(), key=lambda kv: -kv[1])[:15]],
-        rooflines=dict(spans=span_rooflines(spans), harness=harness))
+        rooflines=dict(spans=span_rooflines(spans), harness=harness),
+        kernel_spans=kernel_spans(spans), counters=ctx.get("counts", {}))
     line = json.dumps(report)
     print(line)
     if args.out:
