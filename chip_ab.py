@@ -4,6 +4,7 @@
     python3 chip_ab.py --kernel k1|k2|k3|k4|k6|d1j|d4|mask --parent OLD.cu
                        [--same-shape] [--rounds N] [--queries N] [--reads N]
                        [--swipe-queries N] [--seed S]
+    python3 chip_ab.py --kernel seed [--rounds N] [--seed S]
 
 Builds the kernel's shipped source (``diamond_tpu_torch/csrc``) and the
 given older source (``--parent``), one nvcc each, both at once.  Then it times them in turns (A B B
@@ -32,6 +33,16 @@ A, ``--rounds`` times) on the batches of the kernel's path:
       chip_smoke.MASK_OPS fp32 ops a letter and state over 132 SMs x 128
       lanes and the longest sequence's chain (MASK_CHAIN_OPS dependent
       ops a letter at FP32_LATENCY_CYCLES each).
+
+``--kernel seed`` takes no older source: it times the card route of the
+query-indexed DB-side seed enumeration as a search runs it (the block's
+``upload_block``, then ``enumerate_block`` for both default shapes: the
+keys' upload, the launches, the survivors back) in turns against the
+native fused pass it replaces (``chip_smoke.seed_native``, both shapes),
+host clock around each search, on ``chip_smoke.seed_block``'s blocks of
+15,000 (the benchmark's), 3,000, 300, 120, 60 and 30 proteins with the
+keys of their first 20 and first 1,000 proteins; the two must give the
+same keys and positions.
 
 Each round times each variant three ways: 10 calls launched from Python
 between two events (the per-call time of chip_smoke.py's rows), 10 calls
@@ -673,11 +684,87 @@ def mask_case(args, cs, torch, m):
              n_let * td.WINDOW, cs.MASK_OPS, n_bytes, make_call)]
 
 
+def seed_ab(args, cs):
+    """The card route of the DB-side seed enumeration in turns against the
+    native pass (A B B A, ``--rounds`` times), host clock, a search at a
+    time, at block sizes from the benchmark's down to a few dozen
+    proteins."""
+    import time
+
+    import torch
+
+    from diamond_tpu_torch.ops import seed_enum_device as sed
+    from diamond_tpu_torch.seed.reduction import MURPHY10 as red
+
+    torch.zeros(1, device="cuda")  # the context, as masking leaves it
+    torch.cuda.synchronize()
+    sed._kernel()  # built and loaded: the first search below is a warm run's
+    for n_seqs in SEED_BLOCKS:
+        blk, lens, _, up_ms, cases = cs.seed_block(args.seed, n_seqs)
+        print(f"block of {n_seqs} proteins, {int(lens.sum())} letters in "
+              f"{len(blk.letters)}: upload_block {up_ms:.3f} ms (a larger "
+              f"pinned staging buffer allocated in it, if one was needed)")
+        for n_q in sorted({c[0] for c in cases}):
+            mine = [(shape, qs) for q, shape, qs in cases if q == n_q]
+
+            def card():
+                t = sed.upload_block(blk.letters, blk.starts, lens,
+                                     sed.reduce_table(red), red.size, "cuda")
+                return [sed.enumerate_block(t, shape.positions,
+                                            shape.length, qs)
+                        for shape, qs in mine]
+
+            def host():
+                return [cs.seed_native(blk, lens, shape, qs)
+                        for shape, qs in mine]
+
+            calls = {"card": card, "native": host}
+            outs, first = {}, {}
+            for name, fn in calls.items():
+                t0 = time.perf_counter()
+                outs[name] = fn()
+                first[name] = (time.perf_counter() - t0) * 1e3
+            times = {name: [] for name in calls}
+            order = list(calls)
+            for r in range(args.rounds):
+                for name in (order if r % 2 == 0 else order[::-1]):
+                    t0 = time.perf_counter()
+                    calls[name]()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            same = all(np.array_equal(a, b)
+                       for c, n in zip(outs["card"], outs["native"])
+                       for a, b in zip(c, n))
+            med = {name: float(np.median(ts)) for name, ts in times.items()}
+            print(f"{n_seqs} proteins, {n_q} proteins' keys "
+                  f"({' + '.join(str(len(qs)) for _, qs in mine)}), both "
+                  f"default shapes a search: "
+                  f"{' + '.join(str(len(o[0])) for o in outs['native'])} "
+                  f"survivors; " + "; ".join(
+                      f"{name} first {first[name]:.3f}, then "
+                      f"{' '.join(f'{t:.3f}' for t in ts)} ms, "
+                      f"median {med[name]:.3f}"
+                      for name, ts in times.items())
+                  + f"; native / card {med['native'] / med['card']:.2f}; "
+                  f"equal {same}; {cs.smi('name,power.limit')}")
+            if not same:
+                raise RuntimeError("the card route disagrees with the "
+                                   "native pass")
+    return 0
+
+
+# the blocks seed_ab times: the benchmark's, chip_smoke's blastp test DB,
+# and small ones around the card route's least block
+# (seed_enum_device.MIN_LETTERS)
+SEED_BLOCKS = (15_000, 3_000, 300, 120, 60, 30)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=sorted(SOURCES), required=True)
-    ap.add_argument("--parent", required=True,
-                    help="an older source of the kernel to time beside")
+    ap.add_argument("--kernel", choices=sorted(SOURCES) + ["seed"],
+                    required=True)
+    ap.add_argument("--parent",
+                    help="an older source of the kernel to time beside "
+                         "(every kernel but seed)")
     ap.add_argument("--same-shape", action="store_true",
                     help="launch the older source with the shipped shapes")
     ap.add_argument("--rounds", type=int, default=3)
@@ -697,6 +784,12 @@ def main(argv=None):
         return 1
     import chip_smoke as cs
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    if args.kernel == "seed":
+        print(cs.smi("name,power.limit"))
+        return seed_ab(args, cs)
+    if not args.parent:
+        ap.error(f"--kernel {args.kernel} needs --parent")
 
     name_power = cs.smi("name,power.limit")
     clock_mhz = float(cs.smi("clocks.max.sm").split()[0])

@@ -9,12 +9,14 @@
                           [--linclust-seqs N] [--deepclust-seqs N]
                           [--mcl-small N] [--blastn-reads N]
                           [--coord-queries N] [--seed S] [--mask-only]
+                          [--enum-only]
 
 Phases; each one fails the run on error:
   1. device: the card's name, count, power limit (needs CUDA);
   2. build: the port's CUDA kernels (banded_swipe.cu, swipe3.cu,
      full_swipe.cu, uniform_swipe.cu, swipe_sweep.cu, stage2.cu,
-     stage12.cu, stage12_join.cu, banded_traceback.cu, tantan.cu; one
+     stage12.cu, stage12_join.cu, banded_traceback.cu, tantan.cu,
+     seed_enum.cu; one
      nvcc per source, all at once, for sm_90a; registers
      and spills from ptxas) and the port's native host library;
   3. parity: each kernel against its plain PyTorch version on the card and
@@ -100,7 +102,8 @@ Phases; each one fails the run on error:
      (``chip_smoke.py --cli-worker``) on each route, equal to one process;
      ``--iterate --no-self-hits`` at 1,000 queries against the whole set;
      ``-g 10`` at 1,000 (no K1: its extension is host DP, as in the
-     reference); ``cluster`` of 800, ``realign`` of its output and
+     reference; the query-indexed route: the seed kernel must launch once
+     a shape on both routes); ``cluster`` of 800, ``realign`` of its output and
      ``linclust`` of 40 (host code, once); ``deepclust`` of 400 (these
      sizes keep the run within half its time limit: at 10,000 the
      cascades' linearised rounds take minutes of host code a route);
@@ -137,7 +140,13 @@ Phases; each one fails the run on error:
      and its plain version, bit for bit; per call, kernel only, the card
      route of _mask_block and the native scan, against the larger of
      MASK_OPS a letter and state over the fp32 rate and the longest
-     sequence's chain of MASK_CHAIN_OPS dependent ops a letter); D3 on
+     sequence's chain of MASK_CHAIN_OPS dependent ops a letter); the
+     DB-side seed enumeration at the benchmark's block (enum_entry: both
+     default shapes, the keys of 20 and of 1,000 proteins, against the
+     native fused pass and its plain version, key for key and position
+     for position; per call, kernel only, the card route and the native
+     pass, against the larger of SEED_ENUM_OPS int32 ops a window over
+     the int32 rate and the bytes; its launches the -g run's); D3 on
      the MCL run's matrices against the same torch ops on the CPU and the
      numpy loop (equal cluster assignments), timed on the largest against
      2 m^3 (expansion - 1) flops an iteration over the fp32 rate.
@@ -160,7 +169,8 @@ Phases; each one fails the run on error:
      runs of ``blastp --mesh N`` at 2,000 queries, one rank (NCCL) and two
      ranks sharing the card (Gloo), each rank's output equal to one
      process's, and ``parallel.dist_worker`` with two ranks on the card;
-``--mask-only`` runs phase 1, builds tantan.cu and runs mask_entry alone.
+``--mask-only`` runs phase 1, builds tantan.cu and runs mask_entry alone;
+``--enum-only`` runs phase 1, builds seed_enum.cu and runs enum_entry alone.
 The last two lines of standard output are the kernel summary and
 {"ok": true, "device": {...}}.  Imports nothing of JAX or diamond_tpu.
 """
@@ -1920,6 +1930,181 @@ def mask_entry(seed: int, sm_clock_mhz: float, kind: str, name_power: str):
     return (ms, plain_ms, bound_s * 1e3, bound_by, only_ms), max_err
 
 
+# the query-indexed route's DB-side seed enumeration on the card
+# (csrc/seed_enum.cu): int32 operations a window that the function needs
+SEED_ENUM_OPS = 45
+SEED_ENUM_NOTE = ("at weight 10, 4 a sampled letter (its load, the table "
+                  "lookup, the range test, the multiply-add into the key), "
+                  "and 5 for the window's sequence and the key's probe")
+
+
+def seed_block(seed: int, n_seqs: int = 15_000, n_queries=(20, 1000)):
+    """The DB-side seed enumeration's block and cases on the card:
+    ``n_seqs`` proteins of perfbench/gen.py's frozen generator (a quarter
+    as many families, size_seed 2500, the letters from ``seed``),
+    tantan-masked by the native scan as the pipeline masks them, and
+    uploaded once (upload_block, timed to its sync); a case for the keys of
+    the block's first ``n_q`` proteins (each of ``n_queries``, at most the
+    block) and each default shape.  Returns (the block, its int64 lengths,
+    the SeedBlock, the upload's ms, [(n_q, shape, query keys), ...])."""
+    import torch
+
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.masking.tantan import Tantan
+    from diamond_tpu_torch.ops import seed_enum_device as sed
+    from diamond_tpu_torch.search import pipeline, stages
+    from diamond_tpu_torch.seed.reduction import MURPHY10 as red
+    from diamond_tpu_torch.seed.shapes import SHAPE_CODES, Shape
+    from diamond_tpu_torch.stats.score_matrix import ScoreMatrix
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "perfbench"))
+    try:
+        import gen
+    finally:
+        sys.path.remove(os.path.join(here, "perfbench"))
+    recs = gen.make_proteins(n_seqs, max(n_seqs // 4, 1), seed=seed,
+                             size_seed=2500)
+    blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    pipeline._mask_block(blk, Tantan(ScoreMatrix("BLOSUM62").matrix32),
+                         device="cpu")
+    lens = blk.lengths.astype(np.int64)
+    t0 = time.perf_counter()
+    card = sed.upload_block(blk.letters, blk.starts, lens,
+                            sed.reduce_table(red), red.size, "cuda")
+    torch.cuda.synchronize()
+    up_ms = (time.perf_counter() - t0) * 1e3
+    cases = []
+    for n_q in sorted({min(n, n_seqs) for n in n_queries}):
+        qb = Block.from_sequences([s for _, s in recs[:n_q]],
+                                  [i for i, _ in recs[:n_q]])
+        for code in SHAPE_CODES["default"]:
+            shape = Shape(code)
+            cases.append((n_q, shape, stages.enumerate_seeds(qb, shape,
+                                                             red)[0]))
+    return blk, lens, card, up_ms, cases
+
+
+def seed_native(blk, lens, shape, qs):
+    """The native fused pass that the card route replaces, with the
+    reduction of the block it needs: (keys, positions)."""
+    from diamond_tpu_torch import native
+    from diamond_tpu_torch.seed.reduction import MURPHY10 as red
+
+    return native.enumerate_seeds_filtered_native(
+        red(blk.letters), blk.starts, lens,
+        np.ascontiguousarray(shape.positions, np.int64), shape.weight,
+        shape.length, red.size, 0, np.sort(qs))
+
+
+def enum_entry(seed: int, sm_clock_mhz: float, kind: str, name_power: str):
+    """The DB-side seed enumeration on the card at the benchmark's block
+    (seed_block: 15,000 proteins, both default shapes, the keys of the
+    block's first 20 and first 1,000 proteins): the kernel against the
+    native fused pass (the same keys and positions in the same order) and
+    its plain version on the card; timed per call (the wrapper on tensors
+    on the card: its launches, the sync on the total, the write), kernel
+    only (a CUDA graph of the two launches on fixed buffers), the card
+    route (enumerate_block: the keys' upload, the launches, the survivors
+    back; upload_block once) and the native pass (seed_native); bound the
+    larger of SEED_ENUM_OPS int32 ops a window over the int32 rate and the
+    bytes.  Returns ((ms, plain_ms, bound_ms, bound_by, kernel_only_ms) of
+    the 1,000 proteins' first shape, the mismatches against the native
+    pass)."""
+    import torch
+
+    from diamond_tpu_torch.ops import seed_enum_device as sed
+    from diamond_tpu_torch.seed.reduction import MURPHY10 as red
+
+    blk, lens, card, up_ms, cases = seed_block(seed)
+    clock = sm_clock_mhz * 1e6
+    mis, row = 0, None
+    print(f"seed_enum block: {len(blk)} sequences, {int(lens.sum())} "
+          f"letters in {len(blk.letters)}; upload_block {up_ms:.3f} ms "
+          f"(first call: pinned staging allocated)")
+    for n_q, shape, qs in cases:
+        code = shape.code
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = seed_native(blk, lens, shape, qs)
+            host_s.append(time.perf_counter() - t0)
+        route_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            got = sed.enumerate_block(card, shape.positions,
+                                      shape.length, qs)
+            route_s.append(time.perf_counter() - t0)
+            mis += int(len(got[0]) != len(want[0])
+                       or not np.array_equal(got[0], want[0])
+                       or not np.array_equal(got[1], want[1]))
+        off = sed.window_offsets(lens, shape.length)
+        n_win = int(off[-1])
+        x = dict(letters=card.letters, table=card.table,
+                 starts=card.starts, lens=card.lens,
+                 shape_pos=torch.from_numpy(
+                     shape.positions.astype(np.int32)).cuda(),
+                 span=shape.length, base=red.size,
+                 q_keys=torch.from_numpy(qs.view(np.int64)).cuda())
+        plan = (torch.from_numpy(off).cuda(), n_win)
+        t0 = time.perf_counter()
+        pk, pp = sed.enumerate_filtered_torch(**x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        mis += int(not np.array_equal(
+            pk.cpu().numpy().view(np.uint64), want[0])
+            or not np.array_equal(pp.cpu().numpy(), want[1]))
+        ms = cuda_ms(lambda: sed.enumerate_filtered(**x, plan=plan), 10)
+        # the two launches on fixed buffers, as the wrapper makes them
+        nq, cap = len(qs), sed.hash_capacity(len(qs))
+        n_tiles = -(-n_win // sed.TILE)
+        hs = torch.empty(cap, dtype=torch.int64, device="cuda")
+        cnt = torch.empty(n_tiles, dtype=torch.int32, device="cuda")
+        offs = torch.empty(n_tiles + 1, dtype=torch.int64, device="cuda")
+        out = torch.empty(2 * max(len(want[0]), 1), dtype=torch.int64,
+                          device="cuda")
+        k = sed._kernel()
+
+        def launches():
+            for phase_, ko, po in ((0, 0, 0), (1, out.data_ptr(),
+                                               out[len(want[0]):]
+                                               .data_ptr())):
+                k(phase_, x["letters"].data_ptr(), x["table"].data_ptr(),
+                  x["starts"].data_ptr(), plan[0].data_ptr(), len(lens),
+                  n_win, x["shape_pos"].data_ptr(), shape.weight,
+                  red.size, x["q_keys"].data_ptr(), nq, hs.data_ptr(),
+                  cap, cnt.data_ptr(), offs.data_ptr(), ko, po,
+                  torch.cuda.current_stream().cuda_stream)
+
+        only_ms = graph_ms(launches, 10)
+        ops_s = n_win * SEED_ENUM_OPS / (H100_SMS * INT32_LANES_PER_SM
+                                         * clock)
+        n_bytes = (len(blk.letters) + 24 * len(lens) + 8 * nq
+                   + 16 * len(want[0]))
+        bytes_s = n_bytes / HBM_BYTES_PER_S
+        bound_s = max(ops_s, bytes_s)
+        bound_by = "operations" if ops_s >= bytes_s else "bytes"
+        print(f"seed_enum {n_q} proteins, shape {code}: {n_win} windows, "
+              f"{nq} query keys, {len(want[0])} survivors; {n_win} x "
+              f"{SEED_ENUM_OPS} int32 ops ({SEED_ENUM_NOTE}): "
+              f"{ops_s * 1e3:.5f} ms; {n_bytes} bytes: "
+              f"{bytes_s * 1e3:.5f} ms; bound {bound_s * 1e3:.5f} ms "
+              f"({bound_by}); kernel {ms:.4f} ms per call (its sync "
+              f"on the total), {only_ms:.4f} ms kernel only (CUDA "
+              f"graph), {only_ms / (bound_s * 1e3):.1f}x the bound; "
+              f"plain {plain_ms:.1f} ms; the card route (enumerate_block) "
+              f"{' '.join(f'{t * 1e3:.3f}' for t in route_s)} ms; the "
+              f"native pass {' '.join(f'{t * 1e3:.1f}' for t in host_s)}"
+              f" ms; {kind}, {name_power}")
+        if n_q == 1000 and row is None:
+            row = (ms, plain_ms, bound_s * 1e3, bound_by, only_ms)
+    print(f"seed_enum: {mis} mismatches against the native pass and the "
+          f"plain version; launches {sed.enumerate_filtered.launches}")
+    if mis:
+        raise RuntimeError("the seed kernel disagrees with the native pass")
+    return row, mis
+
+
 def cli_worker(argv) -> int:
     """One CLI run in a process of its own (a --multiprocessing worker),
     DeviceDP's launches timed with CUDA events; its last line of standard
@@ -2126,6 +2311,10 @@ def main(argv=None):
                     help="only tantan's scan on the card (build, parity "
                          "against the native scan, timing) at the "
                          "benchmark's block")
+    ap.add_argument("--enum-only", action="store_true",
+                    help="only the DB-side seed enumeration on the card "
+                         "(build, parity against the native pass, timing) "
+                         "at the benchmark's block")
     args = ap.parse_args(argv)
 
     import torch
@@ -2171,6 +2360,26 @@ def main(argv=None):
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}))
         return 0
+    if args.enum_only:
+        from diamond_tpu_torch.ops import _cuda
+        from diamond_tpu_torch.ops import seed_enum_device as sed
+
+        phase("build")
+        t0 = time.perf_counter()
+        sed._kernel()
+        print(f"nvcc seed_enum.cu: {time.perf_counter() - t0:.2f} s")
+        for line in _cuda.build_log.get("seed_enum", "").splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas seed_enum:", line.strip())
+        phase("the DB-side seed enumeration on the card")
+        row, err = enum_entry(args.seed, sm_clock_mhz, kind, name_power)
+        print(json.dumps({"kernels": [dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "kernel_only_ms"),
+            row), name="seed_enum", launches=sed.enumerate_filtered.launches,
+            max_abs_err=err)]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
     # profiler counters (jobs and cells per DP route) must be on before
     # the port's log module is imported
     os.environ["DIAMOND_TPU_PROF"] = "1"
@@ -2190,6 +2399,7 @@ def main(argv=None):
     from diamond_tpu_torch.ops import swipe3_device as s3
     from diamond_tpu_torch.ops import swipe_device as sd
     from diamond_tpu_torch.ops import swipe_uniform_device as sud
+    from diamond_tpu_torch.ops import seed_enum_device as sed
     from diamond_tpu_torch.ops import tantan_device as tmd
     from diamond_tpu_torch.ops import traceback_device as tbd
     from diamond_tpu_torch.ops.banded_swipe import banded_swipe_batch_np
@@ -2200,7 +2410,7 @@ def main(argv=None):
     phase("build")
     kernels = ("banded_swipe", "swipe3", "full_swipe", "uniform_swipe",
                "swipe_sweep", "stage2", "stage12", "stage12_join",
-               "banded_traceback", "tantan")
+               "banded_traceback", "tantan", "seed_enum")
     t0 = time.perf_counter()
     _cuda.build(kernels)  # one nvcc per source, all at once
     print(f"nvcc {', '.join(k + '.cu' for k in kernels)} in parallel: "
@@ -2210,7 +2420,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas {k}:", line.strip())
     sd._k1(), s3._k3(), sd._k2(), sud._k4(), sd._k5(), s2._k6(), d1m._k_d1()
-    d1m._k_join(), tbd._d4()
+    d1m._k_join(), tbd._d4(), sed._kernel()
     t0 = time.perf_counter()
     if native.lib() is None:
         raise RuntimeError("the port's native host library did not build/load")
@@ -2682,7 +2892,8 @@ def main(argv=None):
                     k2=sd.full_swipe, k4=sud.banded_swipe_uniform_cuda,
                     k5=sd.swipe_sweep, k6=s2.stage2_filter,
                     d1=d1m.stage12_pairs, d1j=d1m.stage12_join,
-                    d4=tbd.banded_traceback_multi, mask=tmd.tantan_mask)
+                    d4=tbd.banded_traceback_multi, mask=tmd.tantan_mask,
+                    seed=sed.enumerate_filtered)
 
     def zero_counts():
         for fn in wrappers.values():
@@ -2693,9 +2904,10 @@ def main(argv=None):
         return {k: fn.launches for k, fn in wrappers.items()}
 
     def dp_launched(counts):
-        """Whether a run launched a DP kernel: the masking kernel launches
-        wherever the device is a card, on the host DP route too."""
-        return any(v for k, v in counts.items() if k != "mask")
+        """Whether a run launched a DP kernel: the masking and the seed
+        kernels launch wherever the device is a card, on the host DP route
+        too."""
+        return any(v for k, v in counts.items() if k not in ("mask", "seed"))
 
     events = []           # CUDA events around every kernel launch of a run
     captured = {}         # the largest batch of each kernel, for timing
@@ -3244,6 +3456,14 @@ def main(argv=None):
         if out["card"][0]["launches"]["k1"]:
             raise RuntimeError("-g launched K1: its ranking pass stops "
                                "before the extension")
+        # 1,000 queries against the whole set take the query-indexed route
+        paths["seed"] = out["card"][0]
+        seeds = [out[r][0]["launches"]["seed"] for r in ("card", "host")]
+        print(f"blastp-g: seed_enum launches (card route, host route) "
+              f"{seeds}")
+        if seeds != [2, 2]:  # one a shape, whatever the DP route
+            raise RuntimeError("blastp -g did not enumerate the DB's seeds "
+                               "on the card")
 
         phase("cluster (default cascade, greedy vertex cover, K1)")
         n_cl = min(args.cluster_seqs, len(recs))
@@ -4148,6 +4368,12 @@ def main(argv=None):
                                       name_power)
     rows.append(("mask", row))
 
+    # the DB-side seed enumeration at the benchmark's block; its launches
+    # are the -g run's (one a shape)
+    row, max_err["seed"] = enum_entry(args.seed, sm_clock_mhz, kind,
+                                      name_power)
+    rows.append(("seed", row))
+
     # D3, MCL's dense step, on the matrices of the MCL run's card route: on
     # the card against the same torch ops on the CPU and the numpy loop
     phase("D3 parity and timing (MCL's dense step, torch ops)")
@@ -4252,6 +4478,10 @@ def main(argv=None):
                  "none: the host C++ scan tantan_repeat_prob_many of both "
                  "packages (native/src/tantan.cc:52-157), from "
                  "search/pipeline._mask_block", "mask"),
+        "seed": ("enumerate_filtered", "diamond_tpu_torch/csrc/seed_enum.cu",
+                 "none: the host C++ pass enumerate_seeds_filtered of both "
+                 "packages (native/src/stages.cc:558), from "
+                 "search/pipeline._enumerate_t_qindex", "seed"),
         # torch ops (fp32 matmul with TF32 off), not a hand-written kernel:
         # the reference computes this step with XLA outside any Pallas kernel
         "d3": ("mcl_dense_torch", "diamond_tpu_torch/cluster/mcl.py",

@@ -8,6 +8,8 @@ version and the ``DeviceDP`` batcher, and the full-matrix sweeps
 ``swipe_uniform`` its plain tensor-op twin; ``stage2_device`` the stage-2
 seeding filter; ``stage12_device`` the fused stage-1/2 filter over letter
 blocks on the card and its batcher ``Stage12Device``, and ``stage12`` the
-stage-1 one-hot product; ``_cuda`` builds and binds the CUDA sources under
-``diamond_tpu_torch/csrc``.
+stage-1 one-hot product; ``traceback_device`` the traceback refill;
+``tantan_device`` tantan's masking scan; ``seed_enum_device`` the
+query-indexed route's DB-side seed enumeration; ``_cuda`` builds and binds
+the CUDA sources under ``diamond_tpu_torch/csrc``.
 """

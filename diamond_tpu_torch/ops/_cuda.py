@@ -5,7 +5,8 @@ a plain C interface, at first use, into ``diamond_tpu_torch/build/`` (listed
 in ``.gitignore``), keyed by the hash of the source and of every shared
 header (``csrc/*.cuh``), and loaded with ctypes.
 Missing sources build in parallel, one ``nvcc`` per file.  A failed build
-raises; nothing falls back.
+raises; nothing falls back.  ``staging`` keeps the pinned host buffers that
+the wrappers upload their inputs from.
 """
 from __future__ import annotations
 
@@ -111,3 +112,42 @@ def launcher(name: str, symbol: str, args: str):
         fn.argtypes = [types[a] for a in args]
         fn.restype = ctypes.c_int
     return fn
+
+
+class Staging:
+    """A pinned host buffer for copies to one CUDA device, kept between
+    calls, and the event after the last copy out of it: ``take`` waits for
+    that copy before the buffer is written again."""
+
+    def __init__(self):
+        self.buf = self.done = None
+
+    def take(self, size: int):
+        """The buffer, at least ``size`` bytes, as a uint8 numpy array."""
+        import torch
+
+        if self.done is not None:
+            self.done.synchronize()
+        if self.buf is None or self.buf.numel() < size:
+            self.buf = torch.empty(max(size, 1 << 20), dtype=torch.uint8,
+                                   pin_memory=True)
+        return self.buf.numpy()
+
+    def upload(self, size: int, dev):
+        """Its first ``size`` bytes on ``dev``: one copy on the current
+        stream, no sync."""
+        import torch
+
+        with torch.cuda.device(dev):
+            up = self.buf[:size].to(dev, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(dev))
+        return up
+
+
+_staging: dict = {}  # (device, name) -> Staging
+
+
+def staging(dev, name: str) -> Staging:
+    """The pinned staging buffer ``name`` of the CUDA device ``dev``."""
+    return _staging.setdefault((dev, name), Staging())

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from diamond_tpu_torch.constants.alphabet import LETTER_MASK, MASK_LETTER
+from diamond_tpu_torch.ops import _cuda
 from diamond_tpu_torch.ops._cuda import check_tensors
 from diamond_tpu_torch.utils.log import kspan
 
@@ -151,8 +152,6 @@ def tantan_mask_torch(letters, starts, lens, params: dict):
 
 
 def _kernel():
-    from diamond_tpu_torch.ops import _cuda
-
     return _cuda.launcher("tantan", "tantan_mask_launch", "ppppippppppffffip")
 
 
@@ -242,9 +241,6 @@ def _table(params: dict) -> np.ndarray:
     return np.concatenate([params["ratios"].reshape(-1), params["d"]])
 
 
-_staging: dict = {}  # device -> the pinned staging buffer (uint8)
-
-
 def mask_letters(letters: np.ndarray, starts: np.ndarray,
                  lengths: np.ndarray, masker, device, overlap=None) -> None:
     """Mask a host block's int8 ``letters`` in place through the CUDA
@@ -266,18 +262,15 @@ def mask_letters(letters: np.ndarray, starts: np.ndarray,
     a1 = a0 + 24 * n                # order: int32
     a2 = a1 + 8 * -(-n // 2)        # the table: float32
     size = a2 + 4 * len(tab)
-    buf = _staging.get(dev)
-    if buf is None or buf.numel() < size:
-        buf = _staging[dev] = torch.empty(max(size, 1 << 20),
-                                          dtype=torch.uint8, pin_memory=True)
-    host = buf.numpy()
+    st = _cuda.staging(dev, "letters")
+    host = st.take(size)
     host[:N] = letters.view(np.uint8)
     meta = host[a0:a1].view(np.int64)
     meta[:n], meta[n:2 * n], meta[2 * n:] = starts, lens, scale_off
     host[a1:a1 + 4 * n].view(np.int32)[:] = order
     host[a2:size].view(np.float32)[:] = tab
+    up = st.upload(size, dev)
     with torch.cuda.device(dev):
-        up = buf[:size].to(dev, non_blocking=True)
         x = up[:N].view(torch.int8)
         meta_d = up[a0:a1].view(torch.int64)
         params["tab"] = up[a2:size].view(torch.float32)

@@ -203,6 +203,9 @@ class Pipeline:
         # with --algo 1, disabled with --algo 0 / sketch / minimizer /
         # linearized / target-indexed / self-search
         self._query_indexed = self._pick_query_indexed()
+        # the target block's letters on the card for the shapes of one
+        # search (_enumerate_t_card)
+        self._t_card = None
 
     def _pick_query_indexed(self) -> bool:
         cfg = self.cfg
@@ -274,6 +277,7 @@ class Pipeline:
         n_parts = cfg.seedp_count
         chunk_bounds = _partition(n_parts, cfg.index_chunks)
 
+        self._t_card = None
         for sid in range(len(cfg.shapes)):
             shape = cfg.shapes[sid]
             timer.go(f"Processing shape {sid + 1}/{len(cfg.shapes)}")
@@ -430,6 +434,7 @@ class Pipeline:
             else:
                 hits.append(shape_arr)
             statistics.inc("SEED_HITS", len(shape_arr))
+        self._t_card = None  # frees the letters on the card
 
         timer.finish()
         if self.ranking_table is not None:
@@ -452,9 +457,24 @@ class Pipeline:
         slices: each slice's seeds probe the sorted query key set and
         only matches survive.  Survivor set and order are identical to
         the one-shot enumerate + filter (slices concatenate in position
-        order), but peak seed memory is one slice, not the block."""
+        order), but peak seed memory is one slice, not the block.
+        On a CUDA device, for blocks of MIN_LETTERS letters or more, the
+        fused path runs there (_enumerate_t_card) with the same output;
+        DB positions count in seed.card_positions / seed.host_positions."""
         cfg = self.cfg
         block = self.t
+        from diamond_tpu_torch.utils.device import resolve_device
+        from diamond_tpu_torch.utils.log import pcount
+
+        dev = resolve_device(self.device)
+        if not cfg.freq_masking and len(q_keys) and dev != "cpu":
+            from diamond_tpu_torch.ops import seed_enum_device as sed
+
+            table = sed.reduce_table(cfg.reduction)
+            if table.dtype == np.int8 and len(block.letters) >= sed.MIN_LETTERS:
+                return self._enumerate_t_card(shape, q_keys, table, dev)
+        pcount("seed.host_positions", int(np.maximum(
+            block.lengths.astype(np.int64) - (shape.length - 1), 0).sum()))
         qs = np.sort(q_keys)
         reduced_all = cfg.reduction(block.letters)
         n = len(block)
@@ -519,6 +539,23 @@ class Pipeline:
             return (np.zeros(0, dtype=np.uint64),
                     np.zeros(0, dtype=np.int64))
         return np.concatenate(out_k), np.concatenate(out_p)
+
+    def _enumerate_t_card(self, shape, q_keys, table, dev):
+        """The fused path of _enumerate_t_qindex on the CUDA ``dev``
+        (ops/seed_enum_device), ``table`` the reduction of every byte: the
+        target letters, as the enumeration sees them (motif ranges
+        applied), go up on the first shape of a search and serve every
+        shape; each shape uploads its query keys and launches once."""
+        from diamond_tpu_torch.ops import seed_enum_device as sed
+        from diamond_tpu_torch.utils.log import pcount
+
+        if self._t_card is None:
+            self._t_card = sed.upload_block(
+                self.t.letters, self.t.starts, self.t.lengths, table,
+                self.cfg.reduction.size, dev)
+        pcount("seed.card_positions", self._t_card.windows(shape.length))
+        return sed.enumerate_block(self._t_card, shape.positions,
+                                   shape.length, q_keys)
 
     def _enumerate(self, block, shape):
         """Seed enumeration; with a sketch size set (FASTER), per-sequence

@@ -51,7 +51,16 @@ ALLOWED = {
                            "mask_block's argument (Pipeline passes its own) "
                            "or resolved, the unmasked copy taken while "
                            "the card masks, its letters counted in "
-                           "mask.card_letters / mask.host_letters", 160),
+                           "mask.card_letters / mask.host_letters; on a "
+                           "CUDA device the query-indexed route's fused "
+                           "DB-side enumeration runs through the port's "
+                           "seed kernel (_enumerate_t_card: "
+                           "ops/seed_enum_device, the same keys and "
+                           "positions in the same order as the native "
+                           "pass), the target letters uploaded once a "
+                           "search, its DB positions counted in "
+                           "seed.card_positions / seed.host_positions",
+                           199),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "

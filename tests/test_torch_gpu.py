@@ -10,8 +10,10 @@ score), the stage-2 filter (K6, also on pair counts of no multiple of
 16, zero-width windows and hamming_id at the edge), the stage-1/2 pair
 filter (D1) and D1's whole fused pass over seed joins (stage12_join, also
 against the native host pass, whole and in chunks) and the traceback
-refill (D4, its planes too) and tantan's scan (the masking, against the
-native host scan too) against their plain PyTorch versions on the
+refill (D4, its planes too), tantan's scan (the masking, against the
+native host scan too) and the query-indexed route's DB-side seed
+enumeration (against the native fused pass too; a blastp through it
+against its host route) against their plain PyTorch versions on the
 same card tensors and against the host DP or a numpy oracle; exact
 integer equality.  MCL's dense step (D3, torch ops)
 on a 512-node component against the same ops on the CPU and the numpy
@@ -793,3 +795,165 @@ def test_tantan_mask_kernel_matches_native_on_gpu(monkeypatch):
     assert inner.parent == outer.id
     assert inner.fields == dict(letters=n, sequences=len(card),
                                 longest=int(card.lengths.max()), states=50)
+
+
+@pytest.mark.gpu
+def test_seed_enum_kernel_matches_native_on_gpu():
+    """The query-indexed route's DB-side seed enumeration on the card
+    (csrc/seed_enum.cu) against the port's native fused pass (diamond_tpu
+    does not run on a card host; tests/test_torch_seed_enum_device.py holds
+    this pass, the plain version and diamond_tpu's sliced route equal to
+    diamond_tpu's native fused pass on the CPU, on these edge cases) on the
+    benchmark's block (15,000 proteins of the frozen generator, ~5.8 M
+    letters) with the keys of 20 and of 1,000 queries, both default shapes, the letters
+    uploaded once: the same keys and positions in the same order, one
+    launch a shape, a kernel.seed_t span with its work; then the CPU
+    tests' edge cases (lengths around the span, empty sequences, MASK,
+    STOP and high-bit bytes, motif ranges, duplicate keys, no keys, a
+    delimiter on a 0 of the shape) against the native pass and the plain
+    version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    sys.path.insert(0, os.path.join(REPO, "perfbench"))
+    try:
+        import gen
+        import test_torch_seed_enum_device as cpu_case
+    finally:
+        sys.path.remove(os.path.join(REPO, "perfbench"))
+        sys.path.remove(os.path.join(REPO, "tests"))
+    from diamond_tpu_torch.data.block import Block
+    from diamond_tpu_torch.ops import seed_enum_device as sed
+    from diamond_tpu_torch.seed.shapes import Shape
+    from diamond_tpu_torch.search import stages
+    from diamond_tpu_torch.utils import log
+
+    RED = cpu_case.RED
+    recs = gen.make_proteins(15_000, 3_750, seed=29, size_seed=2500)
+    blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
+    lens = blk.lengths.astype(np.int64)
+    u0 = sed.upload_block.uploads
+    card = sed.upload_block(blk.letters, blk.starts, lens,
+                            sed.reduce_table(RED), RED.size, "cuda")
+    was = log.enabled()
+    log.enable(True)
+    try:
+        for n_q in (20, 1000):
+            qb = Block.from_sequences([s for _, s in recs[:n_q]],
+                                      [i for i, _ in recs[:n_q]])
+            for code in cpu_case.SHAPES[:2]:
+                shape = Shape(code)
+                qs = stages.enumerate_seeds(qb, shape, RED)[0]
+                want = cpu_case._port_native(blk.letters, blk.starts, lens,
+                                        shape, qs)
+                launches = sed.enumerate_filtered.launches
+                got = sed.enumerate_block(card, shape.positions,
+                                          shape.length, qs)
+                assert sed.enumerate_filtered.launches == launches + 1
+                assert len(want[0]) > 1000
+                assert np.array_equal(got[0], want[0])
+                assert np.array_equal(got[1], want[1])
+                span = log.spans(prefix="kernel.seed_t")[-1]
+                assert span.fields == dict(
+                    positions=card.windows(shape.length), q_keys=len(qs),
+                    survivors=len(want[0]), weight=shape.weight)
+                assert span.ms() > 0
+    finally:
+        log.enable(was)
+    assert sed.upload_block.uploads == u0 + 1
+
+    edge = dict(cpu_case.CASES)
+    rng = np.random.default_rng(4)
+    a, b = (rng.integers(0, 20, 30).astype(np.int8) for _ in range(2))
+    edge["delimiter"] = cpu_case._layout([a, b], rng, gaps=(1, 2))
+    for name, (letters, starts, lens) in sorted(edge.items()):
+        for code in cpu_case.SHAPES:
+            shape = Shape(code)
+            for kind in ("sorted", "unsorted", "empty"):
+                qs = cpu_case._queries(letters, starts, lens, shape,
+                                       np.random.default_rng(len(name)), kind)
+                if name == "delimiter":  # every window's key, straddling too
+                    reduced = RED(letters)
+                    qs = np.zeros(len(letters) - shape.length, np.uint64)
+                    for c in shape.positions:
+                        qs = qs * np.uint64(RED.size) + np.clip(
+                            reduced[c:c + len(qs)], 0, RED.size - 1).astype(
+                                np.uint64)
+                want = cpu_case._port_native(letters, starts, lens, shape, qs)
+                x = [torch.from_numpy(v).cuda() for v in (
+                    letters, sed.reduce_table(RED), starts, lens,
+                    shape.positions.astype(np.int32),
+                    np.asarray(qs, np.uint64).view(np.int64))]
+                args = (*x[:5], shape.length, RED.size, x[5])
+                got = sed.enumerate_filtered(*args)
+                plain = sed.enumerate_filtered_torch(*args)
+                for k, p in (got, plain):
+                    assert np.array_equal(k.cpu().numpy().view(np.uint64),
+                                          want[0]), (name, code, kind)
+                    assert np.array_equal(p.cpu().numpy(), want[1])
+
+
+@pytest.mark.gpu
+def test_blastp_through_the_seed_kernel_on_gpu(tmp_path, monkeypatch):
+    """A query-indexed blastp on the card enumerates the DB's seeds through
+    the kernel (one upload, one launch a shape, the DB's positions in
+    seed.card_positions, kernel.seed_t inside seed.enumerate_t) and prints
+    the bytes it prints with the native pass in the kernel's place (the
+    rest of the search on the card alike)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chip_smoke = _smoke()
+    from diamond_tpu_torch.cli import main
+    from diamond_tpu_torch.ops import seed_enum_device as sed
+    from diamond_tpu_torch.search import pipeline
+    from diamond_tpu_torch.utils import log
+
+    monkeypatch.delenv("DIAMOND_TPU_TORCH_DEVICE", raising=False)
+    recs = chip_smoke.make_proteins(n_seqs=3000, n_families=750, seed=7)
+    chip_smoke.write_fasta(tmp_path / "db.faa", recs)
+    chip_smoke.write_fasta(tmp_path / "q.faa", recs[:40])
+    args = ["blastp", "-q", str(tmp_path / "q.faa"), "-d",
+            str(tmp_path / "db.faa"), "-f", "6"]
+    host_pass = pipeline.Pipeline._enumerate_t_qindex
+
+    def native_pass(self, shape, q_keys, table, dev):
+        self.device, was = "cpu", self.device
+        try:
+            return host_pass(self, shape, q_keys)
+        finally:
+            self.device = was
+
+    lens = np.array([len(s) for _, s in recs], np.int64)
+    windows = sum(int(np.maximum(lens - len(c) + 1, 0).sum())
+                  for c in ("111101110111", "111011010010111"))
+    outs = {}
+    was = log.enabled()
+    log.enable(True)
+    try:
+        for route in ("card", "host"):
+            if route == "host":
+                monkeypatch.setattr(pipeline.Pipeline, "_enumerate_t_card",
+                                    native_pass)
+            c0 = log.prof_calls["seed.card_positions"]
+            h0 = log.prof_calls["seed.host_positions"]
+            u0 = sed.upload_block.uploads
+            l0 = sed.enumerate_filtered.launches
+            assert main(args + ["-o", str(tmp_path / route)]) == 0
+            outs[route] = (tmp_path / route).read_bytes()
+            on_card = route == "card"
+            assert sed.upload_block.uploads - u0 == on_card
+            assert sed.enumerate_filtered.launches - l0 == 2 * on_card
+            assert log.prof_calls["seed.card_positions"] - c0 == \
+                windows * on_card
+            assert log.prof_calls["seed.host_positions"] - h0 == \
+                windows * (not on_card)
+            if on_card:
+                spans = log.spans(prefix="")
+                by_id = {s.id: s for s in spans}
+                inner = [s for s in spans if s.label == "kernel.seed_t"][-2:]
+                assert len(inner) == 2 and all(
+                    by_id[s.parent].label == "seed.enumerate_t"
+                    for s in inner)
+    finally:
+        log.enable(was)
+    assert outs["card"] and outs["card"] == outs["host"]
