@@ -1667,19 +1667,11 @@ def stage12_route_memory(device: str, seed: int = 9) -> list[dict]:
     recs = make_proteins(n_seqs=160, n_families=40, seed=seed)
     seqs, ids = [x for _, x in recs], [i for i, _ in recs]
     cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), sensitivity="sensitive")
-    env = os.environ.get("DIAMOND_TPU_TORCH_STAGE12")
-    os.environ["DIAMOND_TPU_TORCH_STAGE12"] = "1"
-    try:
-        with Patched((Stage12Device, "join_rows", spy),
-                     (pp.Pipeline, "_extend_all", lambda self, h: {})):
-            pp.Pipeline(cfg, Block.from_sequences(seqs[:60], ids[:60]),
-                        Block.from_sequences(seqs, ids),
-                        device=device).search()
-    finally:
-        if env is None:
-            os.environ.pop("DIAMOND_TPU_TORCH_STAGE12")
-        else:
-            os.environ["DIAMOND_TPU_TORCH_STAGE12"] = env
+    with Env(DIAMOND_TPU_TORCH_STAGE12="1", DIAMOND_TPU_TORCH_DEVICE=device), \
+            Patched((Stage12Device, "join_rows", spy),
+                    (pp.Pipeline, "_extend_all", lambda self, h: {})):
+        pp.Pipeline(cfg, Block.from_sequences(seqs[:60], ids[:60]),
+                    Block.from_sequences(seqs, ids)).search()
     return calls
 
 
@@ -1966,8 +1958,8 @@ def seed_block(seed: int, n_seqs: int = 15_000, n_queries=(20, 1000)):
     recs = gen.make_proteins(n_seqs, max(n_seqs // 4, 1), seed=seed,
                              size_seed=2500)
     blk = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
-    pipeline._mask_block(blk, Tantan(ScoreMatrix("BLOSUM62").matrix32),
-                         device="cpu")
+    with Env(DIAMOND_TPU_TORCH_DEVICE="cpu"):
+        pipeline._mask_block(blk, Tantan(ScoreMatrix("BLOSUM62").matrix32))
     lens = blk.lengths.astype(np.int64)
     t0 = time.perf_counter()
     card = sed.upload_block(blk.letters, blk.starts, lens,
@@ -2257,6 +2249,25 @@ class Patched:
     def __exit__(self, *exc):
         for o, n, v in self.saved:
             setattr(o, n, v)
+
+
+class Env:
+    """Set environment variables for the length of a with-block, then
+    restore them."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def source_hits(lines):
@@ -2604,7 +2615,7 @@ def main(argv=None):
         return [(int(best[k]), max(int(mc[k]) - meta["shifts"][k], 0),
                  int(mr[k])) for k in range(n)]
 
-    # K4: the uniform-band DP of the benchmark and the direct DP route
+    # K4: the uniform-band DP of the benchmark and of --swipe --mesh
     phase("kernel parity: K4")
     k4_jobs = k4_mis = k4_host_mis = 0
     k4_bands = []
@@ -2621,8 +2632,6 @@ def main(argv=None):
             q, bias, jobs, m.matrix32, m.gap_open, m.gap_extend), jobs)
         k4_host_mis += sum(a != b for a, b in zip(
             uniform_best_effort(kb, len(jobs)), ref))
-        k4_host_mis += sum(a != b for a, b in zip(  # the direct DP route
-            pext._device_dp_scores(q, bias, jobs, m), ref))
         k4_bands.append(kb[3]["band"])
         k4_jobs += len(jobs)
     # thousands of targets in one call (full-matrix jobs: the wide walk)

@@ -467,14 +467,13 @@ def _device_swipe3_scores(reads, cfg):
     and (target, band) jobs, one launch per band class.  Returns per read
     {job_index: (score, max_col)}, or None where the read has no score-only
     work or takes the host oracle (device path off, a band above the
-    kernel's cap, fewer cells than the routing threshold)."""
+    kernel's cap)."""
     from diamond_tpu_torch.utils.device import device_dp_enabled
 
     out = [None] * len(reads)
     if not device_dp_enabled():
         return out
     from diamond_tpu_torch.ops.swipe3_device import MAX_BAND, swipe3_scores
-    from diamond_tpu_torch.ops.swipe_device import _min_device_cells
     from diamond_tpu_torch.utils.device import resolve_device
 
     mat = cfg.matrix
@@ -484,12 +483,9 @@ def _device_swipe3_scores(reads, cfg):
     for r, (work, frames) in enumerate(reads):
         if not work:
             continue
-        # cost routing: same cells-per-dispatch policy as the 2D DP; a band
-        # above the kernel's register budget sends the read to the host
+        # a band above the kernel's register budget sends the read to the
+        # host
         if max(d1 - d0 for *_, d0, d1 in work) > MAX_BAND:
-            continue
-        if sum(len(tgt) * 3 * (d1 - d0)
-               for _t, tgt, _tl, _s, d0, d1 in work) < _min_device_cells():
             continue
         base = len(strands)
         strands += [[frames[s * 3 + f][0] for f in range(3)] for s in (0, 1)]

@@ -199,36 +199,6 @@ def _subset(p, sel):
     return s
 
 
-def _score_multi(items, mat, state):
-    """One native score-only DP call for the host-routed std jobs of every
-    request in the round.  items: [(qid, req, ks, out)].  Returns False if
-    the native library is unavailable (caller falls back per request)."""
-    from diamond_tpu_torch import native
-
-    if native.lib() is None:
-        return False
-    qblock = state.ctx.query_block
-    p = _pack_jobs(items, state)
-    if p is None:
-        return True
-    jobs_flat = p.jobs_flat
-    _count_cells(p, "ext.score")
-    res = native.banded_swipe_score_multi_native(
-        qblock.letters, p.bias_base, p.q_off, p.q_len, p.use_bias, p.t_cat,
-        p.t_off, p.t_len, p.d_begins, p.bands, mat.matrix32,
-        mat.gap_open + mat.gap_extend, mat.gap_extend)
-    if res is None:
-        return False
-    by_req = {}
-    for (qid, k, *_rest), row in zip(jobs_flat, res):
-        by_req.setdefault(qid, []).append((k, (int(row[0]), int(row[1]),
-                                               int(row[2]))))
-    for qid, req, ks, out in items:
-        for k, v in by_req.get(qid, []):
-            out[k] = v
-    return True
-
-
 def _score_multi_fused(items, mat, state):
     """Round-1 host DP with fused trace-plane emission and eager walk.
 
@@ -273,12 +243,6 @@ def _score_multi_fused(items, mat, state):
         for k, v in by_req.get(qid, []):
             out[k] = v
     return True
-
-
-def _fused_enabled() -> bool:
-    import os
-
-    return not os.environ.get("DIAMOND_TPU_NO_FUSED_TB")
 
 
 def _execute_round(reqs: dict, mat, device,
@@ -352,10 +316,7 @@ def _execute_round(reqs: dict, mat, device,
 
     if score_items:
         with ptimer("ext.score_multi"):
-            if _fused_enabled():
-                ok = _score_multi_fused(score_items, mat, state)
-            else:
-                ok = _score_multi(score_items, mat, state)
+            ok = _score_multi_fused(score_items, mat, state)
         if not ok:
             for qid, r, ks, out in score_items:
                 res = banded_swipe_batch_np(r.q, r.bias,

@@ -19,7 +19,7 @@ the drivers and the cluster rounds run, the 3-frame DP of ``blastx -F``,
 the ``blastp --swipe`` sweep, MCL's dense step) runs on the CUDA card unless
 DIAMOND_TPU_TORCH_DEVICE=cpu asks for the CPU; without a card and without
 that request, the search exits with an error (see utils/device.py for the
-DP routing knobs).  ``--mesh N`` shards it over the first N cards (or N CPU
+routing policy).  ``--mesh N`` shards it over the first N cards (or N CPU
 shards, or the ranks of a ``--coordinator`` process group); with fewer
 cards than N it takes the cards there are, and the output never depends on
 the mesh's size (parallel/sharded.py).  ``blastn`` runs its DP on the host,
@@ -330,7 +330,7 @@ def cmd_blastp(args):
 
     validate_filters(args)
     validate_global_ranking(args)
-    device = _device("blastp")
+    _device("blastp")
     _init_distributed(args)
     _apply_memory_limit(args)
     if args.block_size is not None:
@@ -390,8 +390,7 @@ def cmd_blastp(args):
         results = iterated_search(cfg, qb, tb, rounds)
     else:
         with ptimer("search.setup"):
-            pipe = Pipeline(cfg, qb, tb, target_seed_index=seed_index,
-                            device=device)
+            pipe = Pipeline(cfg, qb, tb, target_seed_index=seed_index)
         results = pipe.search()
     if args.outfmt and args.outfmt[0] in ("100", "daa"):
         from diamond_tpu_torch.data.daa import write_daa

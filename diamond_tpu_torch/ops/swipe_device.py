@@ -29,8 +29,6 @@ never depends on which jobs were routed here.
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -63,17 +61,10 @@ def rows_per_lane(band: int) -> int:
     return -(-max(band, 1) // 32)
 
 
-def _min_device_cells() -> int:
-    """Per-job routing threshold: DIAMOND_TPU_TORCH_DP_MIN_CELLS, default 0
-    (every job within the kernel's band cap goes to DeviceDP)."""
-    v = os.environ.get("DIAMOND_TPU_TORCH_DP_MIN_CELLS")
-    return int(v) if v else 0
-
-
 def job_fits_device(tgt_len: int, d0: int, d1: int) -> bool:
-    band = d1 - d0
-    return (pad_band(band) <= MAX_DEVICE_BAND
-            and tgt_len * band >= _min_device_cells())
+    """Whether DeviceDP takes a job: its band, padded, within K1's cap
+    (every such job goes to the device; ``tgt_len`` does not decide)."""
+    return pad_band(d1 - d0) <= MAX_DEVICE_BAND
 
 
 # ---------------------------------------------------------------------------

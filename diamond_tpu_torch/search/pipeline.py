@@ -50,8 +50,7 @@ class PipelineContext:
         return self._bias_cache[query_id]
 
 
-def _mask_block(block: Block, masker: Tantan, save_original: bool = True,
-                device: str | None = None):
+def _mask_block(block: Block, masker: Tantan, save_original: bool = True):
     """Hard tantan masking in place (reference double_indexed.cpp:122-127,737-741).
 
     Idempotent across iterated-search rounds: the reference masks fresh
@@ -69,7 +68,7 @@ def _mask_block(block: Block, masker: Tantan, save_original: bool = True,
     from diamond_tpu_torch.utils.device import resolve_device
     from diamond_tpu_torch.utils.log import pcount
 
-    dev = resolve_device(device)
+    dev = resolve_device()
     n_letters = int(block.lengths.sum())
     if dev != "cpu":
         from diamond_tpu_torch.ops.tantan_device import mask_letters
@@ -118,11 +117,10 @@ def _mask_block_seg(block: Block):
             block.letters[s + b : s + e] = MASK_LETTER
 
 
-def mask_block(block: Block, masker: Tantan, save_original: bool = True,
-               device: str | None = None):
+def mask_block(block: Block, masker: Tantan, save_original: bool = True):
     """_mask_block under the span mask.block."""
     with ptimer("mask.block"):
-        _mask_block(block, masker, save_original, device)
+        _mask_block(block, masker, save_original)
 
 
 def mask_block_seg(block: Block):
@@ -174,11 +172,8 @@ def restore_ranges(letters: np.ndarray, saved):
 class Pipeline:
     def __init__(self, cfg: SearchConfig, query_block: Block, target_block: Block,
                  queries=None, ranking_table=None, q_base: int = 0,
-                 t_base: int = 0, query_skip=None, target_seed_index=None,
-                 device: str | None = None):
+                 t_base: int = 0, query_skip=None, target_seed_index=None):
         self.cfg = cfg
-        # torch device of the extension DP (None: utils.device's default)
-        self.device = device
         self.q = query_block
         self.t = target_block
         self.queries = queries  # TranslatedQueries when cfg.translated
@@ -247,10 +242,9 @@ class Pipeline:
         if cfg.masking == "tantan":
             timer.go("Masking sequences")
             masker = Tantan(cfg.matrix.matrix32)
-            mask_block(self.t, masker, save_original=self.same_block,
-                       device=self.device)
+            mask_block(self.t, masker, save_original=self.same_block)
             if not self.same_block:
-                mask_block(self.q, masker, device=self.device)
+                mask_block(self.q, masker)
             timer.finish()
         elif cfg.masking == "seg":
             # --masking seg: SEG on the TARGET only, queries unmasked
@@ -466,7 +460,7 @@ class Pipeline:
         from diamond_tpu_torch.utils.device import resolve_device
         from diamond_tpu_torch.utils.log import pcount
 
-        dev = resolve_device(self.device)
+        dev = resolve_device()
         if not cfg.freq_masking and len(q_keys) and dev != "cpu":
             from diamond_tpu_torch.ops import seed_enum_device as sed
 
@@ -787,8 +781,7 @@ class Pipeline:
         pcount("seed.s12_pairs", int(pairs.sum()))
         dev = getattr(self, "_s12_dev", None)
         if dev is None:
-            dev = self._s12_dev = Stage12Device(cfg.matrix.matrix32,
-                                                device=self.device)
+            dev = self._s12_dev = Stage12Device(cfg.matrix.matrix32)
         cut, win = self._per_query_cutoffs()
         chunked = cfg.index_chunks > 1
         part_tbl = None
@@ -1196,9 +1189,9 @@ class Pipeline:
                 # double_indexed.cpp:346-396, as ICI-parallel shards)
                 from diamond_tpu_torch.parallel.sharded import make_mesh
 
-                mesh = make_mesh(self.cfg.mesh_devices, self.device)
+                mesh = make_mesh(self.cfg.mesh_devices)
             device = DeviceDP(mat.matrix32, mat.gap_open, mat.gap_extend,
-                              device=self.device, mesh=mesh)
+                              mesh=mesh)
             return extend_wave(self.ctx, by_query, qids, device)
         if self.cfg.threads > 1 and len(qids) > 1 and _can_fork():
             return _extend_parallel(self.ctx, by_query, qids,

@@ -1,21 +1,57 @@
-"""Device choice and DP routing for the PyTorch/CUDA port.
+"""Where the port's work runs: the whole routing policy.
 
-Entry points run on the CUDA card unless the caller asks for the CPU:
-``device="cpu"`` in code, ``DIAMOND_TPU_TORCH_DEVICE=cpu`` for the CLI.
-Nothing falls back quietly: without a card, and without that request,
-``resolve_device`` raises ``NoDeviceError``.
+Three switches decide it, and this module alone reads them:
 
-The extension DP's score-only round goes through ``ops.swipe_device.DeviceDP``
-on either device: on ``cuda`` it launches the hand-written kernel, on a CPU
-the caller asked for it runs the kernel's plain PyTorch version.
+  DIAMOND_TPU_TORCH_DEVICE       ``cuda`` (the default) or ``cpu``: the
+                                 device of every route below
+                                 (``resolve_device``).  On the CPU the
+                                 kernels' plain PyTorch versions run.
+                                 Nothing falls back quietly: without a card
+                                 and without ``cpu``, ``resolve_device``
+                                 raises ``NoDeviceError``.
+  DIAMOND_TPU_TORCH_DEVICE_DP=0  the DP of K1, D4, K2 and K3 on host C++
+                                 (``device_dp_enabled``): the route the
+                                 tests hold the device against.  Unset or
+                                 any other value: on the device.
+  DIAMOND_TPU_TORCH_STAGE12=1    stage 1/2 seeding (D1) on the device
+                                 (``stage12_device_enabled``); 0 or unset:
+                                 the fused host C++ pass, the default, as
+                                 in diamond_tpu.
 
-  DIAMOND_TPU_TORCH_DEVICE_DP=0    send all DP to host C++ (the kill switch)
-  DIAMOND_TPU_TORCH_DP_MIN_CELLS   per-job routing threshold (default 0)
-  DIAMOND_TPU_TORCH_STAGE12        1: stage 1/2 seeding on the resolved device
-                                   (ops.stage12_device: the fused pair kernel
-                                   on the card, its plain version on a CPU);
-                                   0 or unset: the fused host C++ pass (the
-                                   default, as in diamond_tpu)
+Every route under a search asks ``resolve_device()`` for its device, so a
+search stays on one device.  Only the kernel wrappers take an explicit
+``device=`` (their tests pass the CPU through it).
+
+Where each device route is taken, and what fits it (the rest runs on the
+host, with the same output):
+
+  D5  tantan masking of the query and target blocks
+      (search/pipeline._mask_block, ops/tantan_device): every block.
+  D6  the query-indexed route's DB-side seed enumeration
+      (Pipeline._enumerate_t_qindex, ops/seed_enum_device): target blocks
+      of ``seed_enum_device.MIN_LETTERS`` letters or more, an int8
+      reduction table, no ``--freq-masking``.
+  D1  the stage 1/2 seed join (Pipeline._stage12_device,
+      ops/stage12_device): with DIAMOND_TPU_TORCH_STAGE12=1, every seed
+      group.
+  K1  the extension's score-only rounds (align/wave.py,
+      ops/swipe_device.DeviceDP): standard-matrix jobs whose padded band
+      is within ``swipe_device.MAX_DEVICE_BAND`` (512)
+      (``swipe_device.job_fits_device``).
+  D4  the extension's traceback round (align/wave._tb_multi,
+      ops/traceback_device): the jobs K1 would take, without ``--mesh``.
+  K2  ``blastp --swipe`` (align/swipe_all.py, swipe_device.FullSweep):
+      queries within ``FullSweep.MAX_ROW_LEN`` against targets within
+      ``FullSweep.MAX_LEN``.
+  K3  ``blastx -F``'s score-only round (align/frameshift.py,
+      ops/swipe3_device): reads whose every band is within
+      ``swipe3_device.MAX_BAND``.
+  D3  MCL's dense step (cluster/mcl.py): components of
+      ``mcl.JAX_MIN_COMPONENT`` nodes or more.
+  K4  ``--swipe --mesh``'s sharded scoring (parallel/sharded.py) and the
+      ``benchmark`` command.
+
+D5, D6, D1, D3 and K4 follow the device but not the DP switch.
 
 Multi-process search (``init_distributed``) takes ``--coordinator/
 --num-procs/--proc-id`` or, in their place, the counterparts of diamond_tpu's

@@ -2,9 +2,9 @@
 diamond_tpu's, in subprocesses.
 
 The port runs on the CPU with every fitting DP job routed through DeviceDP's
-plain version (DIAMOND_TPU_TORCH_DP_MIN_CELLS=0) and must make DeviceDP
-dispatches; diamond_tpu runs its host DP under JAX on the CPU.  Both CLIs see
-the same argv[0], so the SAM header's command line matches too.  With
+plain version and must make DeviceDP dispatches; diamond_tpu runs its host
+DP under JAX on the CPU.  Both CLIs see the same argv[0], so the SAM
+header's command line matches too.  With
 stage 1/2 on the device (DIAMOND_TPU_TORCH_STAGE12=1: Stage12Device, D1's
 plain version on the CPU) the port must equal diamond_tpu's device route
 (DIAMOND_TPU_STAGE12=1) and its own host route, dispatch to Stage12Device
@@ -61,8 +61,7 @@ def _run(pkg, args, tmp_path, stage12=False):
     if pkg == "diamond_tpu_torch":
         # one torch thread: the plain versions' tiny ops crawl when the
         # suite's parallel workers oversubscribe the cores
-        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu",
-                   DIAMOND_TPU_TORCH_DP_MIN_CELLS="0", OMP_NUM_THREADS="1")
+        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
         env.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
     else:
         env.update(JAX_PLATFORMS="cpu", DIAMOND_TPU_DEVICE_DP="0")

@@ -39,8 +39,7 @@ def _run(pkg, args, cwd):
     if pkg == "diamond_tpu_torch":
         # one torch thread: the plain versions' tiny ops crawl when the
         # suite's parallel workers oversubscribe the cores
-        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu",
-                   DIAMOND_TPU_TORCH_DP_MIN_CELLS="0", OMP_NUM_THREADS="1")
+        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
         env.pop("DIAMOND_TPU_TORCH_DEVICE_DP", None)
     else:
         env.update(JAX_PLATFORMS="cpu", DIAMOND_TPU_DEVICE_DP="0")

@@ -19,16 +19,19 @@ REF = os.path.join(REPO, "diamond_tpu")
 ALLOWED = {
     "__init__.py": ("docstring names the port", 2),
     "stats/evalue.py": ("evalue_jax, the jax twin, removed", 31),
-    "align/extend.py": ("direct DP route runs the port's uniform-band "
-                        "kernel (K4) on the resolved device, bands past its "
-                        "cap on the host DP; knob renamed", 28),
+    "align/extend.py": ("the direct DP route (the uniform-band kernel "
+                        "on score-only batches) and its batch threshold "
+                        "removed: _run_dp_jobs runs every job on the host "
+                        "DP", 43),
     "align/wave.py": ("comment on the lazy torch import; on the card "
                       "route the traceback round refills the jobs within "
                       "DeviceDP's band cap with the port's D4 "
                       "(ops/traceback_device.tb_multi_device) on the "
                       "DeviceDP's device, the rest with the native call, "
                       "results merged in job order; each round under the "
-                      "span wave.round", 70),
+                      "span wave.round; the unfused score-only round 1 "
+                      "and the environment switch that chose it removed: "
+                      "round 1 always takes _score_multi_fused", 107),
     "search/pipeline.py": ("device route builds the port's DeviceDP on "
                            "the resolved device, with --mesh over the "
                            "port's make_mesh; stage 1/2 on the card hands "
@@ -44,12 +47,12 @@ ALLOWED = {
                            "mask_block_seg wrap the copies' bodies) and "
                            "search.motif around the motif ranges; the "
                            "stage-1/2 counters read the span state at each "
-                           "call; on a CUDA device _mask_block masks "
-                           "through the port's tantan kernel "
-                           "(ops/tantan_device.mask_letters, the same bits "
-                           "as the native scan), the device taken from "
-                           "mask_block's argument (Pipeline passes its own) "
-                           "or resolved, the unmasked copy taken while "
+                           "call; every route resolves its device, "
+                           "Pipeline and mask_block take none; on a CUDA "
+                           "device _mask_block masks through the port's "
+                           "tantan kernel (ops/tantan_device.mask_letters, "
+                           "the same bits as the native scan), the "
+                           "unmasked copy taken while "
                            "the card masks, its letters counted in "
                            "mask.card_letters / mask.host_letters; on a "
                            "CUDA device the query-indexed route's fused "
@@ -60,12 +63,12 @@ ALLOWED = {
                            "pass), the target letters uploaded once a "
                            "search, its DB positions counted in "
                            "seed.card_positions / seed.host_positions",
-                           199),
+                           182),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "
-                            "with its own band cap, then finished (steps "
-                            "3-6) in order", 177),
+                            "with its own band cap and no cells threshold, "
+                            "then finished (steps 3-6) in order", 175),
     "align/swipe_all.py": ("_device_swipe_dispatch builds the port's "
                            "FullSweep on the resolved device; _mesh_for "
                            "caches the port's torch-device mesh; the "

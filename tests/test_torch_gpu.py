@@ -917,11 +917,9 @@ def test_blastp_through_the_seed_kernel_on_gpu(tmp_path, monkeypatch):
     host_pass = pipeline.Pipeline._enumerate_t_qindex
 
     def native_pass(self, shape, q_keys, table, dev):
-        self.device, was = "cpu", self.device
-        try:
+        with monkeypatch.context() as m:  # the route's device: the CPU
+            m.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
             return host_pass(self, shape, q_keys)
-        finally:
-            self.device = was
 
     lens = np.array([len(s) for _, s in recs], np.int64)
     windows = sum(int(np.maximum(lens - len(c) + 1, 0).sum())

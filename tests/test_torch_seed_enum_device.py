@@ -287,12 +287,13 @@ def _search_blocks(n_q=6, n_t=300):
 
 
 def test_cpu_search_keeps_the_native_pass(counters, monkeypatch):
-    """device='cpu' on the query-indexed route: the host pass, its DB
+    """The CPU asked for on the query-indexed route: the host pass, its DB
     positions in seed.host_positions, nothing uploaded or launched."""
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE_DP", "0")
     qb, tb = _search_blocks()
     cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), algo="1")
-    pipe = pipeline.Pipeline(cfg, qb, tb, device="cpu")
+    pipe = pipeline.Pipeline(cfg, qb, tb)
     assert pipe._query_indexed
     h0, c0 = counters["seed.host_positions"], counters["seed.card_positions"]
     u0, l0 = sed.upload_block.uploads, sed.enumerate_filtered.launches
@@ -314,11 +315,12 @@ def test_card_route_takes_blocks_of_min_letters(counters, monkeypatch, n_t):
     keys and positions)."""
     from diamond_tpu_torch.utils import device as device_mod
 
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     qb, tb = _search_blocks(n_t=n_t)
     big = len(tb.letters) >= sed.MIN_LETTERS
     assert big == (n_t == 300)
     cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), algo="1")
-    pipe = pipeline.Pipeline(cfg, qb, tb, device="cpu")
+    pipe = pipeline.Pipeline(cfg, qb, tb)
     card = []
 
     def card_route(self, shape, q_keys, table, dev):
@@ -375,6 +377,7 @@ def test_card_route_wiring_on_the_cpu(counters, monkeypatch):
     the letters (motif ranges applied) go up once a search to the device
     given, the DB positions land in seed.card_positions, and the results
     equal the host route's."""
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE_DP", "0")
     qb, tb = _search_blocks()
     host_pass = pipeline.Pipeline._enumerate_t_qindex
@@ -391,11 +394,11 @@ def test_card_route_wiring_on_the_cpu(counters, monkeypatch):
         return got
 
     cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), algo="1")
-    want = pipeline.Pipeline(cfg, qb, tb, device="cpu").search()
+    want = pipeline.Pipeline(cfg, qb, tb).search()
     uploads = _cpu_stand_ins(monkeypatch)
     monkeypatch.setattr(pipeline.Pipeline, "_enumerate_t_qindex", card_route)
     qb2, tb2 = _search_blocks()
-    pipe = pipeline.Pipeline(cfg, qb2, tb2, device="cpu")
+    pipe = pipeline.Pipeline(cfg, qb2, tb2)
     c0 = counters["seed.card_positions"]
     got = pipe.search()
     assert len(calls) == len(cfg.shapes) and sum(calls) > 0

@@ -29,7 +29,6 @@ def spans_on(monkeypatch):
     """Spans on, the port on the CPU (every fitting DP job on its plain
     kernels); the earlier on/off state back afterwards."""
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
-    monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", "0")
     was = log.enabled()
     log.enable(True)
     yield

@@ -224,9 +224,10 @@ def test_stage12_on_device_never_forks(monkeypatch):
                                   [i for i, _ in recs[:40]])
         tb = Block.from_sequences([s for _, s in recs], [i for i, _ in recs])
         cfg = SearchConfig(matrix=PortMatrix("BLOSUM62"), threads=threads)
-        res = pp.Pipeline(cfg, qb, tb, device="cpu").search()
+        res = pp.Pipeline(cfg, qb, tb).search()
         return list(format_results(res, qb, tb, matrix=cfg.matrix))
 
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE_DP", "0")  # extension: host
     monkeypatch.delenv("DIAMOND_TPU_TORCH_STAGE12", raising=False)
     assert pp._can_fork()
@@ -375,6 +376,7 @@ def test_stage12_join_rows_match_reference_pipeline(sens, self_search,
     from diamond_tpu_torch.search.config import SearchConfig
     from diamond_tpu_torch.stats.score_matrix import ScoreMatrix as PortMatrix
 
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DIAMOND_TPU_TORCH_STAGE12", "1")
     monkeypatch.setenv("DIAMOND_TPU_STAGE12", "1")
     recs = _smoke().make_proteins(n_seqs=160, n_families=40, seed=9)
@@ -396,9 +398,8 @@ def test_stage12_join_rows_match_reference_pipeline(sens, self_search,
 
         monkeypatch.setattr(mod.Pipeline, "_stage12", spy)
         monkeypatch.setattr(mod.Pipeline, "_extend_all", lambda self, h: {})
-        kw = dict(device="cpu") if name == "port" else {}
         mod.Pipeline(cfg, blk.from_sequences(seqs[:60], ids[:60]),
-                     blk.from_sequences(seqs, ids), **kw).search()
+                     blk.from_sequences(seqs, ids)).search()
         out[name] = calls
     assert len(out["port"]) == len(out["ref"]) >= 4  # shapes x index chunks
     for got, want in zip(out["port"], out["ref"]):

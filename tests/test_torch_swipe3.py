@@ -185,7 +185,6 @@ def test_cross_read_windows_match_pallas_and_host(blosum, monkeypatch):
     monkeypatch.setattr(fs, "WINDOW_LETTERS", total // 3)
     monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.delenv("DIAMOND_TPU_TORCH_DEVICE_DP", raising=False)
-    monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", "0")
     mat = ScoreMatrix("BLOSUM62", frame_shift=FS)
     cfg = SimpleNamespace(matrix=mat)
     s3.dispatch_count = 0

@@ -227,12 +227,16 @@ def test_plain_rejects_bad_inputs():
 
 
 def test_job_fits_device(monkeypatch):
-    monkeypatch.delenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", raising=False)
+    """A job fits by its padded band alone, against MAX_DEVICE_BAND as the
+    module holds it at the call: the target's length does not decide."""
     assert sd.job_fits_device(10, 0, 512)
+    assert sd.job_fits_device(1, -200, 312)
     assert not sd.job_fits_device(10, 0, 513)
-    monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", "1000")
-    assert not sd.job_fits_device(10, 0, 50)
-    assert sd.job_fits_device(20, 0, 50)
+    assert not sd.job_fits_device(100000, 0, 513)
+    monkeypatch.setattr(sd, "MAX_DEVICE_BAND", 64)
+    assert sd.job_fits_device(10, 0, 50)  # padded to 64
+    assert sd.job_fits_device(100000, 0, 64)
+    assert not sd.job_fits_device(20, 0, 65)
 
 
 def test_native_oracle_low_diagonal_fault_is_the_references(blosum):

@@ -1,8 +1,7 @@
 """The port's uniform-band SWIPE against diamond_tpu: the kernel's plain
 PyTorch version (the CPU side of ``banded_swipe_uniform_cuda``) against the
 Pallas kernel ``banded_swipe_pallas`` in interpret mode and the host DP
-oracle, the one-hot path ``banded_swipe_uniform`` against its XLA twin, and
-the direct DP route ``align/extend._device_dp_scores`` against diamond_tpu's.
+oracle, and the one-hot path ``banded_swipe_uniform`` against its XLA twin.
 A numpy model of the wide-band walk's order and edge rules (profile rows
 [p_lo, p_hi) in strips, the columns each strip walks, absent against
 invalid cells, the tie reduction at the end) is held against all three.
@@ -23,14 +22,11 @@ jax = pytest.importorskip("jax")  # the reference side (absent on a card host)
 from jax.experimental import pallas as pl  # noqa: E402
 
 import diamond_tpu.ops.swipe_pallas as jsp  # noqa: E402
-from diamond_tpu.align import extend as jext  # noqa: E402
 from diamond_tpu.ops import swipe_jax  # noqa: E402
 from diamond_tpu.ops.banded_swipe import banded_swipe_batch_np  # noqa: E402
 from diamond_tpu.stats.score_matrix import ScoreMatrix  # noqa: E402
-from diamond_tpu_torch.align import extend as pext  # noqa: E402
 from diamond_tpu_torch.ops import swipe_uniform as su  # noqa: E402
 from diamond_tpu_torch.ops import swipe_uniform_device as sud  # noqa: E402
-from diamond_tpu_torch.stats.score_matrix import ScoreMatrix as PortMatrix  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
@@ -260,24 +256,6 @@ def test_banded_swipe_uniform_matches_xla(blosum):
                             device="cpu").run(q, bias, jobs)
             == swipe_jax.SwipeBatcher(blosum.matrix32, blosum.gap_open,
                                       blosum.gap_extend).run(q, bias, jobs))
-
-
-def test_device_dp_scores_matches_jax(blosum, monkeypatch):
-    """The direct DP route on the CPU == diamond_tpu's (its Pallas kernel in
-    interpret mode), positions mapped best-effort alike; bands past the
-    kernel's cap take the host DP with the same output."""
-    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
-    monkeypatch.setattr(jsp, "banded_swipe_pallas",
-                        lambda *a, **kw: _pallas_interpret(*a, tile_b=256))
-    pm = PortMatrix("BLOSUM62")
-    for seed in (6, 7):
-        q, bias, jobs = _query_jobs(seed, 45, 5, 48)
-        want = jext._device_dp_scores(q, bias, jobs, blosum)
-        got = pext._device_dp_scores(q, bias, jobs, pm)
-        assert got == want
-        monkeypatch.setattr(su, "MAX_UNIFORM_BAND", 32)
-        assert pext._device_dp_scores(q, bias, jobs, pm) == want
-        monkeypatch.setattr(su, "MAX_UNIFORM_BAND", 8192)
 
 
 def test_wrapper_rejects_bad_inputs():

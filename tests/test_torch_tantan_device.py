@@ -208,15 +208,15 @@ def test_mask_block_on_cpu_keeps_the_native_scan(counters, monkeypatch):
 
 
 def test_mask_block_device_argument_routes(counters, monkeypatch):
-    """An explicit device wins over the environment: "cpu" masks on the
-    host even where the environment names the card."""
-    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cuda")
+    """mask_block takes its device from the environment, as every route of
+    a search does: "cpu" masks on the host, through the span's wrapper."""
+    monkeypatch.setenv("DIAMOND_TPU_TORCH_DEVICE", "cpu")
     blk = _block(CASES["lengths"])
     want = blk.letters.copy()
     probs = _ref(want, blk.starts, blk.lengths)
     np.copyto(want, MASK_LETTER, where=probs >= MASKER.p_mask)
     h0, c0 = counters["mask.host_letters"], counters["mask.card_letters"]
-    pipeline.mask_block(blk, MASKER, device="cpu")
+    pipeline.mask_block(blk, MASKER)
     assert np.array_equal(blk.letters, want)
     assert counters["mask.host_letters"] - h0 == int(blk.lengths.sum())
     assert counters["mask.card_letters"] == c0

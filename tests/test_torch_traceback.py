@@ -32,6 +32,12 @@ from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")
+# K1's band cap as the synthetic blastp's traceback rounds see it, low
+# enough that some of their jobs go to the native call and the round is
+# mixed.  Round 1 keeps 512: lowered there too, the jobs above the cap
+# would be scored by the fused native fill, whose cached walks leave the
+# traceback round only jobs within the cap.
+CAP = 64
 
 
 def _smoke():
@@ -200,18 +206,32 @@ def test_wrapper_and_routing_checks(monkeypatch):
                                    12, 1)
     t_len = np.array([5, 300, 40, 40, 1000])
     bands = np.array([512, 513, 1, 100, 40])
-    for cells in ("0", "5000"):
-        monkeypatch.setenv("DIAMOND_TPU_TORCH_DP_MIN_CELLS", cells)
-        assert tbd.jobs_fit_device(t_len, bands).tolist() == [
-            sd.job_fits_device(int(t), 0, int(b)) for t, b in zip(t_len,
-                                                                  bands)]
+    for cap in (512, 64):  # K1's band cap, and a lowered one
+        monkeypatch.setattr(sd, "MAX_DEVICE_BAND", cap)
+        fits = tbd.jobs_fit_device(t_len, bands).tolist()
+        assert fits == [sd.job_fits_device(int(t), 0, int(b))
+                        for t, b in zip(t_len, bands)]
+        assert fits == [cap == 512, False, True, cap == 512, True]
 
 
 _PROF = """
 import json, os, sys
 os.environ["DIAMOND_TPU_PROF"] = "1"
 from diamond_tpu_torch.cli import main
+from diamond_tpu_torch.align import wave
+from diamond_tpu_torch.ops import swipe_device
 from diamond_tpu_torch.utils import log
+cap = int(sys.argv.pop(1))
+if cap:
+    tb_multi, full = wave._tb_multi, swipe_device.MAX_DEVICE_BAND
+
+    def capped(*a, **kw):
+        swipe_device.MAX_DEVICE_BAND = cap
+        try:
+            return tb_multi(*a, **kw)
+        finally:
+            swipe_device.MAX_DEVICE_BAND = full
+    wave._tb_multi = capped
 sys.argv = ["diamond"] + sys.argv[1:]
 rc = main(sys.argv[1:])
 print("TB_COUNTS=" + json.dumps({k: v for k, v in log.prof_calls.items()
@@ -220,9 +240,12 @@ sys.exit(rc)
 """
 
 
-def _port_prof(args, tmp_path, extra=None):
+def _port_prof(args, tmp_path, extra=None, cap=0):
+    """The port's CLI with the span counters on; ``cap`` lowers K1's band
+    cap (swipe_device.MAX_DEVICE_BAND) for the traceback rounds, 0 leaves
+    it."""
     env = cli_env("diamond_tpu_torch", extra)
-    r = subprocess.run([sys.executable, "-c", _PROF, *args],
+    r = subprocess.run([sys.executable, "-c", _PROF, str(cap), *args],
                        capture_output=True, env=env, timeout=600,
                        cwd=str(tmp_path))
     err = r.stderr.decode()
@@ -231,14 +254,13 @@ def _port_prof(args, tmp_path, extra=None):
     return r.stdout, json.loads(line[-1].split("=", 1)[1])
 
 
-@pytest.mark.parametrize("inp,min_cells", [("q2", "0"),
-                                           ("synthetic", "20000")])
-def test_blastp_card_route_refills_through_d4(inp, min_cells, tmp_path):
+@pytest.mark.parametrize("inp,cap", [("q2", 0), ("synthetic", CAP)])
+def test_blastp_card_route_refills_through_d4(inp, cap, tmp_path):
     """blastp on the card route (the CPU asked for): the traceback round
     sends its jobs to D4's plain version (ext.tb_card_jobs > 0; on the
-    synthetic set with DIAMOND_TPU_TORCH_DP_MIN_CELLS=20000 a job below it
-    goes to the native call, ext.tb_jobs > 0 too, and the results merge),
-    and the output is diamond_tpu's, byte for byte, and the host route's."""
+    synthetic set with K1's band cap lowered to CAP a job above it goes to
+    the native call, ext.tb_jobs > 0 too, and the results merge), and the
+    output is diamond_tpu's, byte for byte, and the host route's."""
     if inp == "q2":
         q = d = f"{GOLD}/q2.faa"
     else:
@@ -248,13 +270,12 @@ def test_blastp_card_route_refills_through_d4(inp, min_cells, tmp_path):
         cs.write_fasta(d, recs)
         cs.write_fasta(q, recs[:60])
     args = ["blastp", "-q", q, "-d", d, "-f", "6"]
-    port, prof = _port_prof(args, tmp_path,
-                            {"DIAMOND_TPU_TORCH_DP_MIN_CELLS": min_cells})
+    port, prof = _port_prof(args, tmp_path, cap=cap)
     _, ref, _, _ = run_cli("diamond_tpu", args, tmp_path)
     assert port.strip() and port == ref
     assert prof.get("ext.tb_card_jobs", 0) > 0
     assert prof.get("ext.tb_card_cells", 0) > 0
-    assert (prof.get("ext.tb_jobs", 0) > 0) == (min_cells != "0")
+    assert (prof.get("ext.tb_jobs", 0) > 0) == (cap != 0)
     host, hprof = _port_prof(args, tmp_path,
                              {"DIAMOND_TPU_TORCH_DEVICE_DP": "0"})
     assert host == ref and "ext.tb_card_jobs" not in hprof

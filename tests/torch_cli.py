@@ -2,8 +2,8 @@
 byte-for-byte CLI tests: ``from torch_cli import run_cli, synthetic_set``.
 
 diamond_tpu runs under JAX on the CPU with its host DP; the port runs on the
-CPU it is asked for, every fitting DP job through DeviceDP's plain version
-(DIAMOND_TPU_TORCH_DP_MIN_CELLS=0), with one torch thread, and reports
+CPU it is asked for, every fitting DP job through DeviceDP's plain
+version, with one torch thread, and reports
 DeviceDP's dispatch count on stderr as ``DISPATCHES=N``.  Both CLIs see the
 same argv[0].
 """
@@ -36,8 +36,7 @@ def cli_env(pkg, extra=None):
               "DIAMOND_TPU_TORCH_DEVICE_DP"):
         env.pop(k, None)
     if pkg == PORT:
-        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu",
-                   DIAMOND_TPU_TORCH_DP_MIN_CELLS="0", OMP_NUM_THREADS="1")
+        env.update(DIAMOND_TPU_TORCH_DEVICE="cpu", OMP_NUM_THREADS="1")
     else:
         env.update(JAX_PLATFORMS="cpu", DIAMOND_TPU_DEVICE_DP="0")
     env.update(extra or {})
