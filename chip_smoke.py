@@ -1632,6 +1632,8 @@ def stage12_route_memory(device: str, seed: int = 9) -> list[dict]:
     """A --sensitive search (16 shapes, a chunked index) of 60 of
     make_proteins' sequences against 160, stage 1/2 on the fused pass
     (DIAMOND_TPU_TORCH_STAGE12=1) on ``device``, the extension skipped.
+    The partition table is forced on (PAIRS_PER_LETTER 0), as a search
+    whose joins pay for it builds it.
     Per Stage12Device.join_rows call: whether it had a partition table,
     the bytes its Stage12Device keeps cached after it, and on a card the
     memory allocated before and after it."""
@@ -1669,6 +1671,7 @@ def stage12_route_memory(device: str, seed: int = 9) -> list[dict]:
     cfg = SearchConfig(matrix=ScoreMatrix("BLOSUM62"), sensitivity="sensitive")
     with Env(DIAMOND_TPU_TORCH_STAGE12="1", DIAMOND_TPU_TORCH_DEVICE=device), \
             Patched((Stage12Device, "join_rows", spy),
+                    (pp, "PAIRS_PER_LETTER", 0),
                     (pp.Pipeline, "_extend_all", lambda self, h: {})):
         pp.Pipeline(cfg, Block.from_sequences(seqs[:60], ids[:60]),
                     Block.from_sequences(seqs, ids)).search()
@@ -3266,8 +3269,8 @@ def main(argv=None):
         for route, r in (("card", out["card"][0]), ("host", out["host"][0]),
                          ("card-stage12", res)):
             ph = {k: round(r["phases"].get(k, 0.0), 4) for k in (
-                "seed.stage12", "seed.s12_native", "seed.s12_upload",
-                "seed.s12_card", "seed.s12_rows")}
+                "seed.stage12", "seed.part_table", "seed.s12_native",
+                "seed.s12_upload", "seed.s12_card", "seed.s12_rows")}
             print(f"blastp {route} stage 1/2 (s, of {r['wall_s']:.2f} s "
                   f"wall): {json.dumps(ph)}; seed.s12_pairs {r['s12_pairs']}")
         ph_c, ph_h = res["phases"], out["card"][0]["phases"]

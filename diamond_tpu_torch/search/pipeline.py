@@ -28,6 +28,18 @@ from diamond_tpu_torch.stats import cbs as cbs_mod
 from diamond_tpu_torch.stats.cbs import hauser_bias_i8
 from diamond_tpu_torch.utils.log import ptimer
 
+# The left-most filter's seed-partition table (_part_table) pays for its
+# sweep of the target block, ~11-14 ns a letter, once a shape's joins reach
+# this many candidate pairs a target letter (each saves ~18-27 ns).  The
+# break-even, timed on an H100 machine's host with the table and without it
+# on every call of the native pass (tools/part_table_ab.py, four runs of
+# each search, the order turning): pooled 0.52-0.72 over the benchmark's
+# 15,000-protein block against itself (two seeds; 1.19 pairs a letter) and
+# the same number in 75-750 families (1.44-3.77); single runs 0.33-1.43.
+# Set above every pooled break-even; a blastp-default request of 20 or
+# 1,000 queries joins 0.0002-0.009.
+PAIRS_PER_LETTER = 0.75
+
 
 @dataclass
 class PipelineContext:
@@ -666,29 +678,20 @@ class Pipeline:
         chunked = cfg.index_chunks > 1
         current = self._matcher(sid + 1)
         previous = self._matcher(sid) if sid > 0 else self._matcher(0)
-        part_tbl = None
-        if chunked and not skip_lm:
-            # subject-side seed partitions, precomputed once per shape
-            # (replaces left-most verify's per-candidate key recompute)
-            tbls = getattr(self, "_part_tbls", None)
-            if tbls is None:
-                tbls = self._part_tbls = {}
-            part_tbl = tbls.get(sid)
-            if part_tbl is None:
-                part_tbl = tbls[sid] = native.seed_part_table_native(
-                    self.t.letters, shape, cfg.reduction, cfg.seedp_mask)
         q_counts = np.diff(join.q_start)
         s_counts = np.diff(join.s_start)
         cum = np.zeros(n_groups + 1, dtype=np.int64)
         np.cumsum(q_counts * s_counts, out=cum[1:])
         from diamond_tpu_torch.utils.log import pcount
         if group_keep is None:
-            pcount("seed.s12_pairs", int(cum[-1]))
+            kept = int(cum[-1])
             pcount("seed.s12_qinst", int(q_counts.sum()))
         else:
-            pcount("seed.s12_pairs",
-                   int((q_counts * s_counts)[group_keep].sum()))
+            kept = int((q_counts * s_counts)[group_keep].sum())
             pcount("seed.s12_qinst", int(q_counts[group_keep].sum()))
+        pcount("seed.s12_pairs", kept)
+        part_tbl = (self._part_table(shape, sid, kept)
+                    if chunked and not skip_lm else None)
         CAP = 1 << 21
         buf = getattr(self, "_s12_buf", None)
         if buf is None:
@@ -724,6 +727,33 @@ class Pipeline:
         if not outs:
             return np.empty((0, 4), dtype=np.int64)
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+    def _part_table(self, shape, sid, pairs: int):
+        """The target block's seed-partition table for shape ``sid``
+        (native build_seed_part_table), built once a shape under the span
+        seed.part_table when the chunk's ``pairs`` (those of the groups
+        the complexity filter keeps, as seed.s12_pairs counts them) x
+        index_chunks reach PAIRS_PER_LETTER a target letter, else None:
+        the left-most filter then recomputes each key it checks, the same
+        partitions."""
+        from diamond_tpu_torch import native
+        from diamond_tpu_torch.utils.log import pcount
+
+        tbls = getattr(self, "_part_tbls", None)
+        if tbls is None:
+            tbls = self._part_tbls = {}
+        tbl = tbls.get(sid)
+        n = len(self.t.letters)
+        if tbl is None and pairs * self.cfg.index_chunks >= \
+                PAIRS_PER_LETTER * n:
+            with ptimer("seed.part_table"):
+                tbl = tbls[sid] = native.seed_part_table_native(
+                    self.t.letters, shape, self.cfg.reduction,
+                    self.cfg.seedp_mask)
+            pcount("seed.part_table_letters", n)
+        if tbl is None:
+            pcount("seed.part_inline", 1)
+        return tbl
 
     def _pos_index(self, block):
         """int32 letter-position -> sequence-index table (O(1) lookups in
@@ -770,7 +800,6 @@ class Pipeline:
         csrc/stage12_join.cu), in chunks of seed groups with a pair cap; no
         pair is expanded on the host.  The rows and their order are the
         fused native pass's (exact integer ops)."""
-        from diamond_tpu_torch import native
         from diamond_tpu_torch.ops.stage12_device import Stage12Device
         from diamond_tpu_torch.utils.log import pcount
 
@@ -784,15 +813,8 @@ class Pipeline:
             dev = self._s12_dev = Stage12Device(cfg.matrix.matrix32)
         cut, win = self._per_query_cutoffs()
         chunked = cfg.index_chunks > 1
-        part_tbl = None
-        if chunked and not skip_lm:  # shared with the native pass's cache
-            tbls = getattr(self, "_part_tbls", None)
-            if tbls is None:
-                tbls = self._part_tbls = {}
-            part_tbl = tbls.get(sid)
-            if part_tbl is None:
-                part_tbl = tbls[sid] = native.seed_part_table_native(
-                    self.t.letters, shape, cfg.reduction, cfg.seedp_mask)
+        part_tbl = (self._part_table(shape, sid, int(pairs.sum()))
+                    if chunked and not skip_lm else None)
         return dev.join_rows(
             self.q.letters, self.t.letters, self.query_seed_mask, join,
             group_keep, self.q.starts, cut, win, self._pos_index(self.q),

@@ -62,8 +62,15 @@ ALLOWED = {
                            "positions in the same order as the native "
                            "pass), the target letters uploaded once a "
                            "search, its DB positions counted in "
-                           "seed.card_positions / seed.host_positions",
-                           182),
+                           "seed.card_positions / seed.host_positions; "
+                           "the left-most filter's seed-partition table "
+                           "(_part_table, shared by the native and the "
+                           "card pass) is built only where a chunk's "
+                           "pairs x index_chunks reach the measured "
+                           "PAIRS_PER_LETTER a target letter, under the "
+                           "span seed.part_table, counted in "
+                           "seed.part_table_letters / seed.part_inline",
+                           232),
     "align/frameshift.py": ("reads are prepared (steps 1-2), their score-"
                             "only jobs scored by the port's 3-frame kernel "
                             "on the resolved device in windows of reads "
